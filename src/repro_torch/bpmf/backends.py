@@ -1,0 +1,252 @@
+"""Backend registry: one sampler, several execution strategies.
+
+``BPMFEngine`` dispatches to a registry entry by ``BackendConfig.name``.
+This port registers ``"sequential"`` (the single-device sampler of
+:mod:`repro_torch.core.gibbs`). The JAX package's other backends are named
+here so that asking for one says which ROADMAP item brings it.
+"""
+from __future__ import annotations
+
+import abc
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.bpmf.config import BPMFConfig
+from repro_torch.core import gibbs
+from repro_torch.core.prediction import PredictionState
+from repro_torch.core.types import BPMFState, PosteriorAccum
+from repro_torch.data.sparse import RatingsCOO, build_bpmf_data
+
+BACKENDS: dict[str, type["Backend"]] = {}
+
+# backends of the JAX package that this port has not brought over yet
+_NOT_YET_PORTED = {
+    "ring": "ROADMAP Queue 1 item 7 (distributed ring backends)",
+    "ring_async": "ROADMAP Queue 1 item 7 (distributed ring backends)",
+    "allgather": "ROADMAP Queue 1 item 7 (distributed ring backends)",
+    "posterior_merge": "ROADMAP Queue 1 item 8 (posterior_merge)",
+}
+
+_EMPTY_SUM = np.zeros((0, 0), np.float32)
+_EMPTY_STACK = np.zeros((0, 0, 0), np.float32)
+
+
+def _window_slots(count: int, keep: int, available: int) -> np.ndarray:
+    """Rotating-buffer slots of the most recent samples, oldest first."""
+    S = min(count, keep, available)
+    return np.arange(count - S, count, dtype=np.int64) % max(keep, 1)
+
+
+def accum_host_tree(accum: PosteriorAccum) -> dict:
+    """Host view of an accumulator in the JAX package's ``"posterior"`` schema.
+
+    ``{"U_sum", "V_sum", "count", "U_samples", "V_samples"}``: sums are
+    ``(0, 0)``-shaped until the first post-burn-in sample, and the sample
+    stacks are chronological (oldest kept draw first).
+    """
+    count = accum.count
+    if count == 0:
+        U_sum, V_sum = _EMPTY_SUM, _EMPTY_SUM
+    else:
+        U_sum, V_sum = accum.U_sum.cpu().numpy(), accum.V_sum.cpu().numpy()
+    slots = _window_slots(count, accum.keep, accum.filled)
+    if slots.size:
+        idx = torch.from_numpy(slots).to(accum.U_window.device)
+        Us = accum.U_window[idx].cpu().numpy()
+        Vs = accum.V_window[idx].cpu().numpy()
+    else:
+        Us, Vs = _EMPTY_STACK, _EMPTY_STACK
+    return {
+        "U_sum": U_sum,
+        "V_sum": V_sum,
+        "count": np.asarray(count, np.int32),
+        "U_samples": Us,
+        "V_samples": Vs,
+    }
+
+
+def register_backend(name: str) -> Callable[[type["Backend"]], type["Backend"]]:
+    """Class decorator adding a backend under ``name`` (last wins)."""
+
+    def deco(cls: type["Backend"]) -> type["Backend"]:
+        cls.name = name
+        BACKENDS[name] = cls
+        return cls
+
+    return deco
+
+
+def get_backend(cfg: BPMFConfig, device: torch.device) -> "Backend":
+    """Instantiate the backend named by ``cfg.backend.name`` on ``device``.
+
+    Raises:
+        NotImplementedError: A JAX-package backend this port does not have yet.
+        ValueError: A name in neither registry.
+    """
+    name = cfg.backend.name
+    if name not in BACKENDS:
+        if name in _NOT_YET_PORTED:
+            raise NotImplementedError(
+                f"backend {name!r} is not ported yet: {_NOT_YET_PORTED[name]}"
+            )
+        raise ValueError(f"unknown backend {name!r}; available: {sorted(BACKENDS)}")
+    return BACKENDS[name](cfg, device)
+
+
+def available_backends() -> list[str]:
+    """Sorted registry names."""
+    return sorted(BACKENDS)
+
+
+class Backend(abc.ABC):
+    """Execution strategy for the BPMF Gibbs sampler.
+
+    Lifecycle: ``prepare(coo)`` once (host-side layout, uploaded to
+    ``device``), then ``init_state(key)`` and ``sweep_block(...)``
+    repeatedly; ``factors(state)`` recovers (U, V) in original item order.
+    """
+
+    name: str = "?"
+
+    def __init__(self, cfg: BPMFConfig, device: torch.device):
+        self.cfg = cfg
+        self.core_cfg = cfg.core()
+        self.device = device
+        self._prepared = False
+
+    @abc.abstractmethod
+    def prepare(self, coo: RatingsCOO) -> None:
+        """Build the backend's data layout (split, center, bucket) on its device."""
+
+    @abc.abstractmethod
+    def init_state(self, key: torch.Tensor) -> BPMFState:
+        """Prior-predictive state; layout-independent per original item id."""
+
+    @abc.abstractmethod
+    def sweep_block(
+        self, key: torch.Tensor, state, pred: PredictionState,
+        accum: PosteriorAccum, block_size: int,
+    ):
+        """``block_size`` sweeps with no host read inside.
+
+        Returns:
+            ``(state, pred, accum, metrics)`` — ``metrics`` a
+            ``[block_size, 3]`` float32 device tensor of per-sweep
+            ``(rmse_sample, rmse_avg, sweep)`` rows.
+        """
+
+    @abc.abstractmethod
+    def factors(self, state) -> tuple[np.ndarray, np.ndarray]:
+        """(U, V) as host arrays in *original* item order."""
+
+    @abc.abstractmethod
+    def init_accum(self) -> PosteriorAccum:
+        """Zeroed posterior accumulator (window depth ``keep_factor_samples``)."""
+
+    def accum_host(self, accum: PosteriorAccum) -> dict:
+        """Host view of the accumulator in original item order (see :func:`accum_host_tree`)."""
+        return accum_host_tree(accum)
+
+    def posterior_export(self, accum: PosteriorAccum) -> dict:
+        """Global posterior summary feeding the predictor.
+
+        ``{"count", "U_samples", "V_samples"}`` plus ``"U_mean"`` /
+        ``"V_mean"`` when ``count > 0``: host float32 arrays in original
+        item order, chronological sample stacks.
+        """
+        tree = self.accum_host(accum)
+        count = int(tree["count"])
+        out: dict = {
+            "count": count,
+            "U_samples": np.asarray(tree["U_samples"], np.float32),
+            "V_samples": np.asarray(tree["V_samples"], np.float32),
+        }
+        if count:
+            n = np.float32(count)
+            out["U_mean"] = np.asarray(tree["U_sum"] / n, np.float32)
+            out["V_mean"] = np.asarray(tree["V_sum"] / n, np.float32)
+        return out
+
+    @property
+    def prepared(self) -> bool:
+        """Whether ``prepare()`` has built this backend's data layout."""
+        return self._prepared
+
+    def init_pred(self) -> PredictionState:
+        """Zeroed posterior-mean prediction accumulator for the test set."""
+        return PredictionState.init(self.num_test, self.device)
+
+    @property
+    @abc.abstractmethod
+    def num_test(self) -> int:
+        """Number of held-out ratings."""
+
+    @property
+    @abc.abstractmethod
+    def mean_rating(self) -> float:
+        """Training-set mean subtracted before sampling, re-added at predict."""
+
+    @property
+    @abc.abstractmethod
+    def rating_range(self) -> tuple[float, float]:
+        """(lo, hi) clip range for predictions."""
+
+
+@register_backend("sequential")
+class SequentialBackend(Backend):
+    """Single-device Algorithm 1 via :mod:`repro_torch.core.gibbs`."""
+
+    def prepare(self, coo: RatingsCOO) -> None:
+        """Split, center and bucket on the host, then upload to the device.
+
+        ``prepare_seconds`` records the host wall time of the two steps
+        (``"build"``, ``"upload"``).
+        """
+        t0 = time.perf_counter()
+        host = build_bpmf_data(
+            coo,
+            pads=self.cfg.backend.bucket_pads,
+            test_fraction=self.cfg.run.test_fraction,
+            seed=self.cfg.run.seed,
+        )
+        t1 = time.perf_counter()
+        self.data = host.to(self.device)
+        self.prepare_seconds = {"build": t1 - t0, "upload": time.perf_counter() - t1}
+        self._prepared = True
+
+    def init_state(self, key: torch.Tensor) -> BPMFState:
+        """Prior-predictive factors keyed by item id."""
+        return gibbs.init_state(key, self.data.num_users, self.data.num_movies, self.core_cfg)
+
+    def sweep_block(self, key, state, pred, accum, block_size):
+        """``block_size`` sweeps of :func:`repro_torch.core.gibbs.gibbs_sweep_block`."""
+        return gibbs.gibbs_sweep_block(key, state, pred, accum, self.data, self.core_cfg, block_size)
+
+    def factors(self, state) -> tuple[np.ndarray, np.ndarray]:
+        """(U, V) on the host."""
+        return state.U.cpu().numpy(), state.V.cpu().numpy()
+
+    def init_accum(self) -> PosteriorAccum:
+        """Zeroed accumulator on the backend's device."""
+        return PosteriorAccum.init(
+            self.data.num_users, self.data.num_movies,
+            self.core_cfg.K, self.cfg.run.keep_factor_samples, self.device,
+        )
+
+    @property
+    def num_test(self) -> int:
+        """Number of held-out ratings."""
+        return int(self.data.test.rows.shape[0])
+
+    @property
+    def mean_rating(self) -> float:
+        """Training-set mean rating."""
+        return float(self.data.mean_rating)
+
+    @property
+    def rating_range(self) -> tuple[float, float]:
+        """(lo, hi) clip range."""
+        return self.data.min_rating, self.data.max_rating

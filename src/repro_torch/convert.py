@@ -1,0 +1,120 @@
+"""Carry state and data between the JAX package and this one.
+
+The interchange form is a *tree*: nested dicts (and tuples, for buckets)
+whose keys are the field names of the JAX package's pytree dataclasses and
+whose leaves are numpy arrays or Python numbers. ``dataclasses.asdict`` of
+a ``repro`` container gives such a tree (its leaves need only
+``np.asarray``), and a tree from :func:`to_tree` rebuilds a ``repro``
+container field by field. This module imports neither JAX nor ``repro``;
+it only reads and writes trees:
+
+* ``*_from_tree`` builds this package's :class:`BPMFState`,
+  :class:`PredictionState`, :class:`PosteriorAccum` or :class:`BPMFData`
+  (CPU tensors; ``.to(device)`` moves them);
+* :func:`to_tree` turns any of them back into a tree of numpy arrays, with
+  the JAX package's dtypes (int32 counters, float32 factors);
+* :func:`key_from_data` / :func:`key_to_data` convert a key to and from
+  ``jax.random.key_data``'s two uint32 words.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.prediction import PredictionState
+from repro_torch.core.types import (
+    BPMFData,
+    BPMFState,
+    Bucket,
+    BucketedSide,
+    HyperParams,
+    PosteriorAccum,
+    TestSet,
+)
+
+# counters that are 0-d int32 device arrays in the JAX package and ints here
+_INT_SCALARS = {"sweep", "num_samples", "count", "filled"}
+
+
+def _t(x: Any) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+def key_from_data(data: Any) -> torch.Tensor:
+    """A key tensor from the ``[2]`` uint32 words of ``jax.random.key_data``."""
+    return _t(np.asarray(data, np.uint32).astype(np.int64))
+
+
+def key_to_data(key: torch.Tensor) -> np.ndarray:
+    """The ``[2]`` uint32 words ``jax.random.wrap_key_data`` takes."""
+    return key.cpu().numpy().astype(np.uint32)
+
+
+def to_tree(obj: Any) -> Any:
+    """Tree of numpy leaves with the JAX package's field names and dtypes."""
+    if dataclasses.is_dataclass(obj):
+        out = {}
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            out[f.name] = np.asarray(v, np.int32) if f.name in _INT_SCALARS else to_tree(v)
+        return out
+    if isinstance(obj, tuple):
+        return tuple(to_tree(v) for v in obj)
+    if torch.is_tensor(obj):
+        return obj.detach().cpu().numpy()
+    return obj
+
+
+def _hyper(tree: Mapping) -> HyperParams:
+    return HyperParams(mu=_t(tree["mu"]), Lam=_t(tree["Lam"]))
+
+
+def state_from_tree(tree: Mapping) -> BPMFState:
+    """:class:`BPMFState` from a ``repro.core.types.BPMFState`` tree."""
+    return BPMFState(
+        U=_t(tree["U"]), V=_t(tree["V"]),
+        hyper_U=_hyper(tree["hyper_U"]), hyper_V=_hyper(tree["hyper_V"]),
+        sweep=int(np.asarray(tree["sweep"])),
+    )
+
+
+def prediction_from_tree(tree: Mapping) -> PredictionState:
+    """:class:`PredictionState` from a ``repro.core.prediction.PredictionState`` tree."""
+    return PredictionState(
+        sum_pred=_t(tree["sum_pred"]), num_samples=int(np.asarray(tree["num_samples"]))
+    )
+
+
+def accum_from_tree(tree: Mapping) -> PosteriorAccum:
+    """:class:`PosteriorAccum` from a ``repro.core.types.PosteriorAccum`` tree."""
+    return PosteriorAccum(
+        U_sum=_t(tree["U_sum"]), V_sum=_t(tree["V_sum"]),
+        count=int(np.asarray(tree["count"])), filled=int(np.asarray(tree["filled"])),
+        U_window=_t(tree["U_window"]), V_window=_t(tree["V_window"]),
+    )
+
+
+def _side(tree: Mapping) -> BucketedSide:
+    buckets = tuple(
+        Bucket(item_ids=_t(b["item_ids"]), nbr=_t(b["nbr"]), val=_t(b["val"]), nnz=_t(b["nnz"]))
+        for b in tree["buckets"]
+    )
+    return BucketedSide(buckets=buckets, num_items=int(tree["num_items"]))
+
+
+def data_from_tree(tree: Mapping) -> BPMFData:
+    """:class:`BPMFData` from a ``repro.core.types.BPMFData`` tree."""
+    test = tree["test"]
+    return BPMFData(
+        users=_side(tree["users"]),
+        movies=_side(tree["movies"]),
+        test=TestSet(rows=_t(test["rows"]), cols=_t(test["cols"]), vals=_t(test["vals"])),
+        mean_rating=_t(np.asarray(tree["mean_rating"], np.float32)),
+        num_users=int(tree["num_users"]),
+        num_movies=int(tree["num_movies"]),
+        min_rating=float(tree["min_rating"]),
+        max_rating=float(tree["max_rating"]),
+    )

@@ -11,6 +11,7 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running end-to-end test")
     config.addinivalue_line("markers", "multidevice: runs a subprocess with forced host devices")
+    config.addinivalue_line("markers", "cuda: needs a CUDA device; skips itself without one")
 
 
 def pytest_collection_modifyitems(config, items):
