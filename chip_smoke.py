@@ -6,33 +6,49 @@
 Phases (any failure stops the run with a non-zero exit and no result line):
 
 1. the card's name and power limit, as nvidia-smi reports them;
-2. build the CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc;
+2. build the CUDA kernels (one source, ``src/repro_torch/kernels/csrc/
+   bpmf_gram.cu``, with the per-bucket and the fused ring-step kernel) with
+   nvcc;
 3. hold the Gram kernel against its plain PyTorch version on the card, in
    float32 and bfloat16, at the shapes of tests/test_kernels.py and at three
    MovieLens-20M bucket shapes, and time the kernel, the plain version and
    ``torch.bmm`` on the pre-gathered block (contraction only, gather
-   excluded): one JSON line per shape;
+   excluded): one JSON line per shape; then the same for the fused kernel at
+   the edge shapes of tests/test_gram_fused.py;
 4. the sequential sampler at MovieLens-20M scale (138,493 x 27,278, 20 M
    ratings, K = 32, default pads) through ``BPMFEngine``: 4 sweeps, with the
    launch counters reset just before and read just after; then every bucket
-   of that data held against the plain version and timed;
+   of that data held against the plain version and timed; then the fused
+   kernel on the movies side's buckets flattened into one step, which is
+   step 0 of the movies side of a 1-shard ring (it holds the P = 131,072
+   class);
 5. requests: ``predict`` with ``return_std`` and ``top_k`` on the posterior,
    checked against numpy;
 6. one more sweep under torch.profiler: device time by kernel, kernel
    launches, and the device's busy share of a steady sweep;
-7. the small seeded task of tests/test_posterior_quality.py on the card,
+7. the ring at MovieLens-20M scale on the same ratings: ``ring`` with 4
+   shards, all on this one card, through ``BPMFEngine``, 4 sweeps in blocks
+   of 2 with the counters reset just before and read just after; each
+   sweep's RMSE held to the sequential phase's; then ``ring_async`` (depth
+   2) and ``allgather`` for 2 sweeps from the same start, held to the ring's
+   state; one traced ring sweep; and every (side, step, shard) layout of a
+   sweep held against the fused kernel's plain version and timed;
+8. the small seeded task of tests/test_posterior_quality.py on the card,
    inside its recorded RMSE band;
-8. the ``kernels`` JSON line, the card line again, and last the ``ok`` line.
+9. the ``kernels`` JSON line, the card line again, and last the ``ok`` line.
 
-Tolerance of the kernel against the plain version: the plain version
+Tolerance of a kernel against its plain version: the plain version
 contracts in float64 (the correctly rounded sum), the kernel sums float32
 products one at a time in p order, so entry (i, j) may be off by a few
 float32 epsilons times sqrt(P) times sum_p |x_i x_j|, which is at most
 sqrt(G_ii G_jj). The check allows 16 eps sqrt(P) sqrt(G_ii G_jj), and
-sqrt(G_ii sum_p val^2) for g.
+sqrt(G_ii sum_p val^2) for g. The fused kernel is compared from zero sums,
+where its output is alpha times such a Gram, with P the most ratings one
+row has in the step.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -52,6 +68,16 @@ TEST_SHAPES = [(16, 8, 1, 8), (64, 32, 13, 70), (128, 32, 8, 128), (100, 16, 5, 
 # movies P=512, and the heaviest movies P=131,072
 ML20M_SHAPES = [(27_278, 59_711, 128, 33), (138_493, 20_391, 512, 129), (138_493, 5, 131_072, 65_537)]
 RMSE_BAND = (0.70, 0.82)  # tests/test_posterior_quality.py's recorded band
+RING_SHARDS = 4
+ALPHA = 2.0  # the engine's default rating precision
+# tests/test_gram_fused.py's edge shapes: (Ns, K, cap, [(B, P, dead rows, all empty)])
+FUSED_SHAPES = {
+    "multibucket": (96, 16, 64, [(16, 8, (), False), (9, 32, (), False), (4, 128, (), False)]),
+    "B_not_multiple_of_tb": (64, 8, 24, [(13, 64, (), False)]),
+    "all_padding": (32, 8, 16, [(8, 16, (), True), (8, 16, (), False)]),
+    "item_minus_one": (48, 16, 20, [(10, 32, (0, 3, 9), False)]),
+    "multichunk": (64, 16, 16, [(8, 300, (), False)]),
+}
 
 
 def card_line() -> str:
@@ -159,6 +185,105 @@ def phase_kernel_shapes(torch, gram_kernel) -> None:
         torch.cuda.empty_cache()
 
 
+def fused_work(step, Ns: int, K: int) -> tuple[float, float]:
+    """(bytes, flops) one fused launch needs: each real rating's id and value,
+    X once, each chunk's item and count, and the running (G, g) row of every
+    live item read and written once; K (K + 3) flops per rating."""
+    ratings = float(step.cnt.sum())
+    bytes_ = 8.0 * ratings + 4.0 * Ns * K + 8.0 * step.cnt.shape[0] + 2 * 4.0 * (K * K + K) * step.num_rows
+    return bytes_, ratings * K * (K + 3)
+
+
+def fused_error(torch, got, want, step, alpha: float) -> tuple[float, float]:
+    """(max abs error, max error over its allowance) of a launch from zero sums; raises past it."""
+    G, g = got
+    Gw, gw = want
+    live = step.item >= 0
+    rows = step.item[live].long()
+    per_row = torch.zeros(Gw.shape[0], dtype=torch.float64, device=Gw.device)
+    per_row.index_add_(0, rows, step.cnt[live].double())
+    v2 = torch.zeros_like(per_row).index_add_(0, rows, (step.val[live].double() ** 2).sum(1))
+    tol = 16 * torch.finfo(torch.float32).eps * math.sqrt(max(float(per_row.max()), 1.0))
+    d = torch.diagonal(Gw, dim1=1, dim2=2).clamp_min(0).double()
+    scale_G = tol * (d[:, :, None] * d[:, None, :]).sqrt() + 1e-30
+    scale_g = tol * (d * alpha * v2[:, None]).sqrt() + 1e-30
+    err = max(float((G - Gw).abs().max()), float((g - gw).abs().max()))
+    ratio = max(float(((G - Gw).abs() / scale_G).max()), float(((g - gw).abs() / scale_g).max()))
+    if not (torch.isfinite(G).all() and torch.isfinite(g).all()) or ratio > 1.0:
+        raise AssertionError(f"fused kernel disagrees with the plain version: max abs {err}, "
+                             f"{ratio:.3f} x the allowance 16 eps sqrt(P)")
+    return err, ratio
+
+
+def check_fused(torch, gram_kernel, X, step, cap: int, label: dict, full: bool) -> dict:
+    """The fused kernel against its plain version on one layout, from zero sums, and timed.
+
+    ``full`` adds bfloat16, two-launch bit equality and the ``bmm``
+    contraction on the pre-gathered chunks; each dtype prints one JSON line.
+    """
+    K = X.shape[1]
+    byt, fl = fused_work(step, X.shape[0], K)
+    out = {}
+    for cd in (torch.float32, torch.bfloat16) if full else (torch.float32,):
+        def launch(G, g, fn=gram_kernel.bpmf_gram_fused):
+            return fn(G, g, X, step.nbr, step.val, step.item, step.cnt, ALPHA, cd, step.order)
+
+        def zeros():
+            return (torch.zeros(cap, K, K, device="cuda"), torch.zeros(cap, K, device="cuda"))
+
+        got = launch(*zeros())
+        want = launch(*zeros(), fn=gram_kernel.bpmf_gram_fused_plain)
+        torch.cuda.synchronize()
+        err, ratio = fused_error(torch, got, want, step, ALPHA)
+        line = {"phase": "fused_vs_plain", **label, "Ns": X.shape[0], "K": K, "cap": cap,
+                "chunks": step.cnt.shape[0], "live_rows": step.num_rows,
+                "ratings": int(step.cnt.sum()), "compute_dtype": str(cd).replace("torch.", ""),
+                "max_abs_err": err, "err_over_allowance": ratio}
+        if full:
+            again = launch(*zeros())
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+                raise AssertionError(f"two fused launches on the same inputs differ at {label}")
+            del again
+        del got, want
+        if cd == torch.float32:
+            G, g = zeros()
+            line["kernel_ms"] = time_ms(torch, lambda: launch(G, g), 5)
+            line["plain_ms"] = time_ms(torch, lambda: launch(G, g, fn=gram_kernel.bpmf_gram_fused_plain), 2)
+            del G, g
+            if full:
+                pc = step.nbr.shape[1]
+                mask = (torch.arange(pc, device="cuda")[None] < step.cnt[:, None]).float()
+                Y = torch.cat([X[step.nbr.long()] * mask[..., None], (step.val * mask)[..., None]], -1)
+                Yt = Y.transpose(1, 2)
+                line["bmm_contraction_only_ms"] = time_ms(torch, lambda: torch.bmm(Yt, Y), 5)
+                del Y, Yt, mask
+            line["bound_ms"] = bound_ms(byt, fl)
+            line["bound_by"] = "operations" if fl / PEAK_F32_FLOPS > byt / PEAK_BYTES_PER_S else "bytes"
+            out = {"ms": line["kernel_ms"], "plain_ms": line["plain_ms"], "bytes": byt, "flops": fl,
+                   "err": err}
+        print(json.dumps(line), flush=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_fused_shapes(torch, np, gram_kernel, ops, Bucket) -> None:
+    for name, (Ns, K, cap, shapes) in FUSED_SHAPES.items():
+        rng = np.random.default_rng(len(name))
+        X = torch.from_numpy(rng.normal(size=(Ns, K)).astype(np.float32)).cuda()
+        buckets = []
+        for B, P, dead, empty in shapes:
+            nnz = np.zeros(B, np.int32) if empty else rng.integers(0, P + 1, B).astype(np.int32)
+            nbr = rng.integers(0, Ns, (B, P)).astype(np.int32)
+            val = rng.normal(size=(B, P)).astype(np.float32)
+            val[np.arange(P)[None] >= nnz[:, None]] = 0.0
+            ids = rng.permutation(cap)[:B].astype(np.int32)
+            ids[list(dead)] = -1
+            buckets.append(Bucket(*(torch.from_numpy(a).cuda() for a in (ids, nbr, val, nnz))))
+        check_fused(torch, gram_kernel, X, ops.fused_step(tuple(buckets)), cap,
+                    {"shape": f"tests/test_gram_fused.py {name}"}, full=True)
+
+
 def phase_ml20m(torch, gram_kernel, repro_torch_mods) -> dict:
     BPMFConfig, BPMFEngine, ML20M_LIKE, synthetic_ratings = repro_torch_mods
     t0 = time.perf_counter()
@@ -237,8 +362,22 @@ def phase_ml20m(torch, gram_kernel, repro_torch_mods) -> dict:
         "buckets_side_P_B_nnz_maxnnz_kernel_plain_bound_ms": per_bucket,
     }
     print(json.dumps(per_sweep), flush=True)
-    return {"engine": engine, "launches": launches, "gram": per_sweep,
-            "steady_sweep_s": block_s[-1] / cfg.run.sweeps_per_block}
+    return {"engine": engine, "launches": launches, "gram": per_sweep, "coo": coo, "cfg": cfg,
+            "steady_sweep_s": block_s[-1] / cfg.run.sweeps_per_block,
+            "rmse_sample": [m.rmse_sample for m in engine.history]}
+
+
+def phase_fused_one_shard(torch, gram_kernel, ops, engine) -> None:
+    """Step 0 of the movies side of a 1-shard ring: every movie with all its users.
+
+    That step's buckets are the sequential movies buckets (same pad classes,
+    ascending ids; the ring only pads B to a multiple of 8 with dead rows),
+    so they are flattened here at the run's own factors.
+    """
+    data, state = engine.backend.data, engine.state
+    step = ops.fused_step(data.movies.buckets)
+    check_fused(torch, gram_kernel, state.U, step, data.num_movies,
+                {"shape": "ML20M ring S=1 movies step 0", "side": "movies", "step": 0, "shard": 0}, full=True)
 
 
 def phase_requests(torch, np, engine) -> None:
@@ -273,7 +412,7 @@ def phase_requests(torch, np, engine) -> None:
                       "top_k_users": users, "top_k_ms": topk_ms}), flush=True)
 
 
-def phase_profile(torch, engine, steady_sweep_s: float) -> None:
+def phase_profile(torch, engine, steady_sweep_s: float, label: str = "profile_one_sweep") -> None:
     """One more ML20M sweep under torch.profiler (CUDA activity only).
 
     Prints device time by kernel and the number of kernel launches. The
@@ -298,11 +437,111 @@ def phase_profile(torch, engine, steady_sweep_s: float) -> None:
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
     print(json.dumps({
-        "phase": "profile_one_sweep", "device_kernel_ms": busy_ms,
+        "phase": label, "device_kernel_ms": busy_ms,
         "kernel_launches": sum(r[1] for r in rows), "steady_sweep_ms": 1e3 * steady_sweep_s,
         "busy_share": busy_ms / (1e3 * steady_sweep_s),
         "top_kernels_ms_count": [[round(ms, 4), n, name[:100]] for ms, n, name in rows[:15]],
     }), flush=True)
+
+
+def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict) -> dict:
+    """The 4-shard ring at ML20M on this card, its async and allgather variants, and its kernel."""
+    cfg = ml["cfg"].replace(name="ring", num_shards=RING_SHARDS)
+    engine = BPMFEngine(cfg)
+    engine.prepare(ml["coo"])
+    b = engine.backend
+    expected_per_sweep = b.data.fused_launches_per_sweep()
+    print(json.dumps({
+        "phase": "ring_setup", "num_shards": b.num_shards, "shards_per_device": b.ring.shards_per_device(),
+        "host_seconds": b.prepare_seconds, "cap": {"users": b.data.users.cap, "movies": b.data.movies.cap},
+        "fused_launches_per_sweep": expected_per_sweep,
+        "buckets_per_step": {side: [len(per_step[0]) for per_step in getattr(b.data, side).steps]
+                             for side in ("users", "movies")},
+    }), flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in ("LAUNCHES", "PLAIN_CALLS", "FUSED_LAUNCHES", "FUSED_PLAIN_CALLS"):
+        setattr(gram_kernel, name, 0)
+    block_s, after_block1 = [], None
+    t_prev = time.perf_counter()
+    for m in engine.sample():
+        if m.sweep % cfg.run.sweeps_per_block == 0:
+            now = time.perf_counter()
+            block_s.append(now - t_prev)
+            t_prev = now
+            if after_block1 is None:
+                after_block1 = engine.state
+    counts = {name: getattr(gram_kernel, name)
+              for name in ("LAUNCHES", "PLAIN_CALLS", "FUSED_LAUNCHES", "FUSED_PLAIN_CALLS")}
+    peak = torch.cuda.max_memory_allocated()
+    rmse = [m.rmse_sample for m in engine.history]
+    gap = [abs(a - b_) for a, b_ in zip(rmse, ml["rmse_sample"])]
+    print(json.dumps({
+        "phase": "ring_sweeps", "sweeps": engine.num_sweeps_done,
+        "seconds_per_sweep_by_block": [s_ / cfg.run.sweeps_per_block for s_ in block_s],
+        "rmse_sample": rmse, "rmse_avg": [m.rmse_avg for m in engine.history],
+        "sequential_rmse_sample": ml["rmse_sample"], "rmse_gap_to_sequential": gap,
+        "counts": counts, "expected_fused_launches": expected_per_sweep * engine.num_sweeps_done,
+        "max_memory_allocated_bytes": peak,
+    }), flush=True)
+    if counts["FUSED_LAUNCHES"] != expected_per_sweep * engine.num_sweeps_done:
+        raise AssertionError(f"{counts['FUSED_LAUNCHES']} fused launches, want {expected_per_sweep} "
+                             f"per sweep x {engine.num_sweeps_done} sweeps")
+    if counts["PLAIN_CALLS"] or counts["FUSED_PLAIN_CALLS"] or counts["LAUNCHES"]:
+        raise AssertionError(f"the ring ran something other than the fused kernel: {counts}")
+    if not all(math.isfinite(v) for v in rmse) or max(gap) > 1e-3:
+        raise AssertionError(f"ring RMSE {rmse} is not within 1e-3 of the sequential {ml['rmse_sample']}")
+
+    # ring_async and allgather from the same start, 2 sweeps each
+    for mode, depth in (("ring_async", 2), ("allgather", 1)):
+        mcfg = dataclasses.replace(b.core_cfg, comm_mode=mode, pipeline_depth=depth)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _, _, rows = dist.dist_gibbs_sweep_block(
+            engine._k_run, b.init_state(engine._k_init), b.init_pred(), b.init_accum(),
+            b.data, mcfg, b.ring, 2)
+        rows = rows.cpu().numpy()
+        secs = (time.perf_counter() - t0) / 2
+        diff = max(float((x - y).abs().max()) for xs, ys in ((st.U, after_block1.U), (st.V, after_block1.V))
+                   for x, y in zip(xs, ys))
+        print(json.dumps({"phase": "ring_variant", "comm_mode": mode, "pipeline_depth": depth,
+                          "seconds_per_sweep": secs, "rmse_sample": rows[:, 0].tolist(),
+                          "max_abs_diff_to_ring": diff}), flush=True)
+        if (mode == "ring_async" and diff != 0.0) or diff > 1e-5:
+            raise AssertionError(f"{mode} differs from ring by {diff} after 2 sweeps")
+        del st
+    return {"engine": engine, "launches": counts["FUSED_LAUNCHES"],
+            "steady_sweep_s": block_s[-1] / cfg.run.sweeps_per_block}
+
+
+def phase_ring_layouts(torch, gram_kernel, engine) -> dict:
+    """Every (side, step, shard) layout of one ring sweep, at the run's final factors."""
+    b, state = engine.backend, engine.state
+    S = b.num_shards
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0, "err": 0.0, "launches": 0}
+    for side_name, X_opp in (("movies", state.U), ("users", state.V)):
+        side = getattr(b.data, side_name)
+        for t in range(S):
+            for d in range(S):
+                step = side.fused[t][d]
+                if step is None or step.num_rows == 0:
+                    continue
+                full = d == 0 and t < 2
+                r = check_fused(torch, gram_kernel, X_opp[(d - t) % S], step, side.cap,
+                                {"shape": f"ML20M ring S={S}", "side": side_name, "step": t, "shard": d},
+                                full=full)
+                for k in ("ms", "plain_ms", "bytes", "flops"):
+                    totals[k] += r[k]
+                totals["err"] = max(totals["err"], r["err"])
+                totals["launches"] += 1
+    bound = bound_ms(totals["bytes"], totals["flops"])
+    per_sweep = {"phase": "ring_fused_per_sweep", "launches": totals["launches"], "kernel_ms": totals["ms"],
+                 "plain_ms": totals["plain_ms"], "bound_ms": bound,
+                 "bound_by": "operations" if totals["flops"] / PEAK_F32_FLOPS > totals["bytes"] / PEAK_BYTES_PER_S
+                 else "bytes", "max_abs_err": totals["err"], "bytes": totals["bytes"], "flops": totals["flops"]}
+    print(json.dumps(per_sweep), flush=True)
+    return per_sweep
 
 
 def phase_small_task(gram_kernel, BPMFConfig, BPMFEngine, load_dataset) -> None:
@@ -331,8 +570,11 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     from repro_torch.bpmf import BPMFConfig, BPMFEngine, load_dataset
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.types import Bucket
     from repro_torch.data.synthetic import ML20M_LIKE, synthetic_ratings
     from repro_torch.kernels import bpmf_gram as gram_kernel
+    from repro_torch.kernels import ops
     from repro_torch.kernels.build import load_library
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -346,10 +588,17 @@ def main() -> int:
                       "ptxas": ptxas}), flush=True)
 
     phase_kernel_shapes(torch, gram_kernel)
+    phase_fused_shapes(torch, np, gram_kernel, ops, Bucket)
     ml = phase_ml20m(torch, gram_kernel, (BPMFConfig, BPMFEngine, ML20M_LIKE, synthetic_ratings))
+    phase_fused_one_shard(torch, gram_kernel, ops, ml["engine"])
     phase_requests(torch, np, ml["engine"])
     phase_profile(torch, ml["engine"], ml["steady_sweep_s"])
     del ml["engine"]
+    torch.cuda.empty_cache()
+    ring = phase_ring(torch, gram_kernel, BPMFEngine, dist, ml)
+    phase_profile(torch, ring["engine"], ring["steady_sweep_s"], "profile_one_ring_sweep")
+    fused = phase_ring_layouts(torch, gram_kernel, ring["engine"])
+    del ring["engine"], ml["coo"]
     torch.cuda.empty_cache()
     phase_small_task(gram_kernel, BPMFConfig, BPMFEngine, load_dataset)
 
@@ -368,6 +617,21 @@ def main() -> int:
         "library_ms": None,
         "note": f"ms, plain_ms and bound_ms cover the {gram['launches']} launches of one "
                 "ML20M sweep; no single PyTorch call computes the masked gather + Gram",
+    }, {
+        "name": "bpmf_gram_fused",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bpmf_gram.cu",
+        "replaces": "src/repro/kernels/bpmf_gram.py:245",
+        "launches": ring["launches"],
+        "max_abs_err": fused["max_abs_err"],
+        "ms": fused["kernel_ms"],
+        "plain_ms": fused["plain_ms"],
+        "bound_ms": fused["bound_ms"],
+        "bound_by": fused["bound_by"],
+        "library_ms": None,
+        "note": f"ms, plain_ms and bound_ms cover the {fused['launches']} launches of one ML20M "
+                f"sweep of the {RING_SHARDS}-shard ring, from zero sums; no single PyTorch call "
+                "computes the gather + Gram + per-item accumulation",
     }]}
     print(f"total seconds: {time.perf_counter() - t_all:.1f}", flush=True)
     print(json.dumps(kernels), flush=True)

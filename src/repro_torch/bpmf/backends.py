@@ -1,13 +1,22 @@
 """Backend registry: one sampler, several execution strategies.
 
 ``BPMFEngine`` dispatches to a registry entry by ``BackendConfig.name``.
-This port registers ``"sequential"`` (the single-device sampler of
-:mod:`repro_torch.core.gibbs`). The JAX package's other backends are named
-here so that asking for one says which ROADMAP item brings it.
+Registered here:
+
+  * ``"sequential"`` — the single-device sampler of :mod:`repro_torch.core.gibbs`;
+  * ``"ring"``, ``"ring_async"``, ``"allgather"`` — the distributed sampler
+    of :mod:`repro_torch.core.distributed` over a ring of
+    ``BackendConfig.num_shards`` shards (paper §IV-C; ring_async keeps
+    ``pipeline_depth`` rotations in flight, arXiv:1705.10633).
+
+Every backend draws the same posterior samples for the same ``(seed,
+data)``, up to float reduction order. ``posterior_merge`` is named here
+so that asking for it says which ROADMAP item brings it.
 """
 from __future__ import annotations
 
 import abc
+import dataclasses
 import time
 from typing import Callable
 
@@ -15,18 +24,17 @@ import numpy as np
 import torch
 
 from repro_torch.bpmf.config import BPMFConfig
+from repro_torch.core import distributed as dist
 from repro_torch.core import gibbs
 from repro_torch.core.prediction import PredictionState
 from repro_torch.core.types import BPMFState, PosteriorAccum
 from repro_torch.data.sparse import RatingsCOO, build_bpmf_data
+from repro_torch.launch.mesh import bpmf_ring
 
 BACKENDS: dict[str, type["Backend"]] = {}
 
 # backends of the JAX package that this port has not brought over yet
 _NOT_YET_PORTED = {
-    "ring": "ROADMAP Queue 1 item 7 (distributed ring backends)",
-    "ring_async": "ROADMAP Queue 1 item 7 (distributed ring backends)",
-    "allgather": "ROADMAP Queue 1 item 7 (distributed ring backends)",
     "posterior_merge": "ROADMAP Queue 1 item 8 (posterior_merge)",
 }
 
@@ -40,23 +48,39 @@ def _window_slots(count: int, keep: int, available: int) -> np.ndarray:
     return np.arange(count - S, count, dtype=np.int64) % max(keep, 1)
 
 
-def accum_host_tree(accum: PosteriorAccum) -> dict:
+def accum_host_tree(
+    accum: PosteriorAccum,
+    u_order: np.ndarray | None = None,
+    v_order: np.ndarray | None = None,
+) -> dict:
     """Host view of an accumulator in the JAX package's ``"posterior"`` schema.
 
     ``{"U_sum", "V_sum", "count", "U_samples", "V_samples"}``: sums are
     ``(0, 0)``-shaped until the first post-burn-in sample, and the sample
     stacks are chronological (oldest kept draw first).
+
+    Args:
+        accum: The accumulator (any device; read here).
+        u_order / v_order: Relabeled -> original permutations
+            (``plan.part_*.perm``) applied to the item axis, for the
+            distributed backends. Pass both or neither.
     """
+    if (u_order is None) != (v_order is None):
+        raise ValueError("accum_host_tree: pass both u_order and v_order, or neither")
     count = accum.count
     if count == 0:
         U_sum, V_sum = _EMPTY_SUM, _EMPTY_SUM
     else:
         U_sum, V_sum = accum.U_sum.cpu().numpy(), accum.V_sum.cpu().numpy()
+        if u_order is not None:
+            U_sum, V_sum = U_sum[u_order], V_sum[v_order]
     slots = _window_slots(count, accum.keep, accum.filled)
     if slots.size:
         idx = torch.from_numpy(slots).to(accum.U_window.device)
         Us = accum.U_window[idx].cpu().numpy()
         Vs = accum.V_window[idx].cpu().numpy()
+        if u_order is not None:
+            Us, Vs = Us[:, u_order], Vs[:, v_order]
     else:
         Us, Vs = _EMPTY_STACK, _EMPTY_STACK
     return {
@@ -250,3 +274,118 @@ class SequentialBackend(Backend):
     def rating_range(self) -> tuple[float, float]:
         """(lo, hi) clip range."""
         return self.data.min_rating, self.data.max_rating
+
+
+class DistributedBackend(Backend):
+    """Shared machinery of the ring backends (paper §IV).
+
+    ``prepare`` builds the ring (:func:`repro_torch.launch.mesh.bpmf_ring`:
+    ``BackendConfig.num_shards`` shards over the visible cards, or on the
+    CPU), distributes the data on the host and places each shard's part on
+    its device, with the fused kernel's per-step layouts. The comm mode is
+    the backend's name (``BPMFConfig.core``). State, accumulators and
+    factors are per shard; ``factors`` and ``accum_host`` undo the
+    relabeling.
+    """
+
+    def prepare(self, coo: RatingsCOO) -> None:
+        """Partition, bucket per ring step, and place every shard on its device.
+
+        ``prepare_seconds`` records the host wall time of the host build
+        (``"build"``) and of the placement with the fused layouts
+        (``"upload"``).
+        """
+        self.ring = bpmf_ring(self.cfg.backend.num_shards, self.device)
+        t0 = time.perf_counter()
+        host, self.plan = dist.build_distributed_data(
+            coo,
+            num_shards=self.ring.num_shards,
+            pads=self.cfg.backend.bucket_pads,
+            test_fraction=self.cfg.run.test_fraction,
+            seed=self.cfg.run.seed,
+            strategy=self.cfg.backend.partition_strategy,
+        )
+        t1 = time.perf_counter()
+        fused = self.core_cfg.gram_impl in ("auto", "pallas_fused")
+        self.data = dist.place_data(host, self.ring, fused=fused)
+        if self.ring.home.type == "cuda":
+            torch.cuda.synchronize(self.ring.home)
+        self.prepare_seconds = {"build": t1 - t0, "upload": time.perf_counter() - t1}
+        self._prepared = True
+
+    @property
+    def num_shards(self) -> int:
+        """Ring length S."""
+        return self.ring.num_shards
+
+    def init_state(self, key: torch.Tensor) -> dist.DistState:
+        """Prior-predictive factor shards, rows keyed by original item id."""
+        return dist.init_dist_state(key, self.data, self.core_cfg, self.ring)
+
+    def sweep_block(self, key, state, pred, accum, block_size):
+        """``block_size`` sweeps of :func:`repro_torch.core.distributed.dist_gibbs_sweep_block`."""
+        return dist.dist_gibbs_sweep_block(
+            key, state, pred, accum, self.data, self.core_cfg, self.ring, block_size
+        )
+
+    def factors(self, state) -> tuple[np.ndarray, np.ndarray]:
+        """(U, V) on the host, in original item order."""
+        return dist.gather_factors(state, self.plan)
+
+    def init_accum(self) -> tuple[PosteriorAccum, ...]:
+        """Zeroed accumulators, one per shard on its device."""
+        return dist.init_dist_accum(
+            self.data, self.core_cfg, self.ring, self.cfg.run.keep_factor_samples
+        )
+
+    def accum_host(self, accum) -> dict:
+        """Host view of the per-shard accumulators, in original item order."""
+
+        def cat(name: str, dim: int) -> torch.Tensor:
+            return torch.cat([getattr(a, name).cpu() for a in accum], dim=dim)
+
+        whole = dataclasses.replace(
+            accum[0], U_sum=cat("U_sum", 0), V_sum=cat("V_sum", 0),
+            U_window=cat("U_window", 1), V_window=cat("V_window", 1),
+        )
+        return accum_host_tree(
+            whole, u_order=self.plan.part_users.perm, v_order=self.plan.part_movies.perm
+        )
+
+    def init_pred(self) -> PredictionState:
+        """Zeroed prediction accumulator on the ring's home device."""
+        return PredictionState.init(self.num_test, self.ring.home)
+
+    @property
+    def num_test(self) -> int:
+        """Number of held-out ratings."""
+        return int(self.data.test.rows.shape[0])
+
+    @property
+    def mean_rating(self) -> float:
+        """Training-set mean rating."""
+        return float(self.data.mean_rating)
+
+    @property
+    def rating_range(self) -> tuple[float, float]:
+        """(lo, hi) clip range."""
+        return self.data.min_rating, self.data.max_rating
+
+
+@register_backend("ring")
+class RingBackend(DistributedBackend):
+    """Paper §IV-C: rotate the opposite shards around the ring, overlapped with the Gram."""
+
+
+@register_backend("ring_async")
+class AsyncRingBackend(DistributedBackend):
+    """Depth-d pipelined ring (arXiv:1705.10633; DESIGN.md §7).
+
+    Keeps ``BackendConfig.pipeline_depth`` rotations in flight instead of
+    one; the samples are bit-identical to ``"ring"`` at every depth.
+    """
+
+
+@register_backend("allgather")
+class AllGatherBackend(DistributedBackend):
+    """Synchronous baseline: gather every opposite shard, then update locally."""

@@ -9,8 +9,7 @@ and checks, so a configuration carries over:
 
 What this port does not run yet raises ``NotImplementedError`` naming the
 ROADMAP item that brings it: ``pipeline_blocks > 1`` here, checkpoint
-settings in the engine, and backends other than ``sequential`` in the
-backend registry.
+settings in the engine, and ``posterior_merge`` in the backend registry.
 """
 from __future__ import annotations
 
@@ -105,8 +104,11 @@ class BackendConfig:
     """Execution backend selection.
 
     Attributes:
-        name: Backend registry key; only ``"sequential"`` is ported.
-        num_shards: Ring length for the distributed backends.
+        name: Backend registry key: ``"sequential"``, ``"ring"``,
+            ``"ring_async"`` or ``"allgather"``.
+        num_shards: Ring length S of the distributed backends (0 = one
+            shard per visible card, or one on the CPU). Shard d sits on
+            card ``d % n``; shards that share a card run there in turn.
         pipeline_depth: ``ring_async`` rotations kept in flight (d >= 1).
         gram_impl: Gram dispatch, in the JAX package's spellings:
             ``"auto"``, ``"pallas"`` and ``"pallas_fused"`` launch the CUDA
@@ -181,7 +183,14 @@ class BPMFConfig:
     backend: BackendConfig = BackendConfig()
 
     def core(self) -> core_types.BPMFConfig:
-        """Lower to the flat config of :mod:`repro_torch.core`."""
+        """Lower to the flat config of :mod:`repro_torch.core`.
+
+        Backend names that are also comm modes (``ring`` / ``ring_async`` /
+        ``allgather``) pass through as ``comm_mode``; any other name lowers
+        to ``"ring"``, which the sequential sampler ignores.
+        """
+        comm_modes = ("ring", "ring_async", "allgather")
+        comm_mode = self.backend.name if self.backend.name in comm_modes else "ring"
         return core_types.BPMFConfig(
             K=self.model.K,
             alpha=self.model.alpha,
@@ -190,6 +199,8 @@ class BPMFConfig:
             sample_dtype=self.model.sample_dtype,
             compute_dtype=self.model.compute_dtype,
             gram_impl=self.backend.gram_impl,
+            comm_mode=comm_mode,
+            pipeline_depth=self.backend.pipeline_depth,
         )
 
     def replace(self, **kw: Any) -> "BPMFConfig":

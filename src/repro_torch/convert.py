@@ -13,6 +13,10 @@ it only reads and writes trees:
   (CPU tensors; ``.to(device)`` moves them);
 * :func:`to_tree` turns any of them back into a tree of numpy arrays, with
   the JAX package's dtypes (int32 counters, float32 factors);
+* ``dist_*_from_tree`` build the distributed sampler's per-shard
+  :class:`DistState`, :class:`DistBPMFData` and :class:`DistPlan` from the
+  JAX package's ring-sharded ones: each global ``[S * n, ...]`` array is
+  split into S blocks of n rows, one per shard;
 * :func:`key_from_data` / :func:`key_to_data` convert a key to and from
   ``jax.random.key_data``'s two uint32 words.
 """
@@ -24,6 +28,14 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch.core.balance import Partition
+from repro_torch.core.distributed import (
+    DistBPMFData,
+    DistPlan,
+    DistState,
+    DistTestSet,
+    RingSide,
+)
 from repro_torch.core.prediction import PredictionState
 from repro_torch.core.types import (
     BPMFData,
@@ -117,4 +129,67 @@ def data_from_tree(tree: Mapping) -> BPMFData:
         num_movies=int(tree["num_movies"]),
         min_rating=float(tree["min_rating"]),
         max_rating=float(tree["max_rating"]),
+    )
+
+
+def _blocks(x: Any, S: int) -> tuple[torch.Tensor, ...]:
+    """The S row blocks of a ring-sharded ``[S * n, ...]`` array."""
+    return tuple(_t(b) for b in np.split(np.asarray(x), S))
+
+
+def dist_state_from_tree(tree: Mapping, num_shards: int) -> DistState:
+    """:class:`DistState` from a ``repro.core.distributed.DistState`` tree."""
+    return DistState(
+        U=_blocks(tree["U"], num_shards), V=_blocks(tree["V"], num_shards),
+        hyper_U=_hyper(tree["hyper_U"]), hyper_V=_hyper(tree["hyper_V"]),
+        sweep=int(np.asarray(tree["sweep"])),
+    )
+
+
+def _ring_side(tree: Mapping, S: int) -> RingSide:
+    steps = []
+    for per_step in tree["steps"]:
+        split = [
+            {f: _blocks(b[f], S) for f in ("item_ids", "nbr", "val", "nnz")} for b in per_step
+        ]
+        steps.append(tuple(
+            tuple(Bucket(**{f: parts[f][d] for f in parts}) for parts in split) for d in range(S)
+        ))
+    return RingSide(
+        steps=tuple(steps), orig_ids=_blocks(tree["orig_ids"], S),
+        cap=int(tree["cap"]), num_items=int(tree["num_items"]),
+    )
+
+
+def dist_data_from_tree(tree: Mapping) -> DistBPMFData:
+    """:class:`DistBPMFData` (CPU tensors) from a ``repro.core.distributed.DistBPMFData`` tree.
+
+    ``repro_torch.core.distributed.place_data`` puts it on a ring.
+    """
+    S = int(tree["num_shards"])
+    test = tree["test"]
+    return DistBPMFData(
+        users=_ring_side(tree["users"], S),
+        movies=_ring_side(tree["movies"], S),
+        test=DistTestSet(rows=_t(test["rows"]), cols=_t(test["cols"]), vals=_t(test["vals"])),
+        mean_rating=_t(np.asarray(tree["mean_rating"], np.float32)),
+        num_shards=S,
+        min_rating=float(tree["min_rating"]),
+        max_rating=float(tree["max_rating"]),
+    )
+
+
+def _partition(tree: Mapping) -> Partition:
+    return Partition(
+        shards=[np.asarray(s) for s in tree["shards"]],
+        perm=np.asarray(tree["perm"]), inv_perm=np.asarray(tree["inv_perm"]),
+        cap=int(tree["cap"]), loads=np.asarray(tree["loads"]),
+    )
+
+
+def dist_plan_from_tree(tree: Mapping) -> DistPlan:
+    """:class:`DistPlan` from a ``repro.core.distributed.DistPlan`` tree (per-host fields dropped)."""
+    return DistPlan(
+        part_users=_partition(tree["part_users"]), part_movies=_partition(tree["part_movies"]),
+        num_shards=int(tree["num_shards"]), strategy=str(tree["strategy"]),
     )

@@ -43,10 +43,20 @@ def _sample_wishart(key: torch.Tensor, scale_chol: torch.Tensor, df: torch.Tenso
     return LA @ LA.T
 
 
-def hyper_sufficient_stats(X: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(n, sum_x, sum_xxT) of the rows of X."""
-    n = torch.tensor(float(X.shape[0]), dtype=X.dtype, device=X.device)
-    return n, X.sum(dim=0), X.T @ X
+def hyper_sufficient_stats(
+    X: torch.Tensor, weights: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(n, sum_x, sum_xxT) of the rows of X, the statistics a ring shard contributes.
+
+    ``weights`` masks rows (1 = real item, 0 = a shard's padding slot), so a
+    shard can pass its whole ``[cap, K]`` block without biasing the draw.
+    """
+    if weights is None:
+        n = torch.tensor(float(X.shape[0]), dtype=X.dtype, device=X.device)
+        return n, X.sum(dim=0), X.T @ X
+    w = weights.to(X.dtype)
+    Xw = X * w[:, None]
+    return w.sum(), Xw.sum(dim=0), Xw.T @ X
 
 
 def sample_hyper_from_stats(

@@ -45,17 +45,24 @@ def update_predictions(
     The RMSEs stay on the device (0-dim tensors); nothing is read back here.
     """
     preds = predict(U, V, data.test, data.mean_rating, data.min_rating, data.max_rating)
-    r_sample = rmse(preds, data.test.vals)
+    return accumulate_predictions(pred_state, preds, data.test.vals, burned_in)
+
+
+def accumulate_predictions(
+    pred_state: PredictionState, preds: torch.Tensor, vals: torch.Tensor, burned_in: bool
+) -> tuple[PredictionState, torch.Tensor, torch.Tensor]:
+    """Fold one sample's test predictions into the running mean; (state, rmse_sample, rmse_avg)."""
+    r_sample = rmse(preds, vals)
     if not burned_in:
         # before burn-in the average is empty; report the sample RMSE instead
         r_avg = r_sample if pred_state.num_samples == 0 else rmse(
-            pred_state.sum_pred / pred_state.num_samples, data.test.vals
+            pred_state.sum_pred / pred_state.num_samples, vals
         )
         return pred_state, r_sample, r_avg
     new_state = PredictionState(
         sum_pred=pred_state.sum_pred + preds, num_samples=pred_state.num_samples + 1
     )
-    r_avg = rmse(new_state.sum_pred / float(new_state.num_samples), data.test.vals)
+    r_avg = rmse(new_state.sum_pred / float(new_state.num_samples), vals)
     return new_state, r_sample, r_avg
 
 

@@ -188,7 +188,7 @@ class BPMFData(_Movable):
 
 @dataclasses.dataclass(frozen=True)
 class BPMFConfig:
-    """Static configuration of the sequential sampler."""
+    """Static configuration of the samplers (sequential and distributed)."""
 
     K: int = 32
     alpha: float = 2.0  # rating noise precision
@@ -200,6 +200,10 @@ class BPMFConfig:
     # "pallas_fused" launch the CUDA kernel on a GPU tensor; "xla" is the
     # plain PyTorch version and is refused on a GPU tensor
     gram_impl: str = "auto"
+    # distributed backends: how the opposite side's shards reach each shard
+    # ("ring", "ring_async" or "allgather") and ring_async's rotations in flight
+    comm_mode: str = "ring"
+    pipeline_depth: int = 1
 
     def prior(self, device="cpu") -> NormalWishartPrior:
         p = NormalWishartPrior.default(self.K, self.sample_dtype, device)

@@ -9,6 +9,7 @@ become (CPU) tensors. ``BPMFData.to(device)`` uploads them.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import numpy as np
@@ -117,6 +118,26 @@ def bucketize_side(
     assign = bucket_assignment(nnz, pads)
     buckets = [pad_group(assign[pad], indptr, indices, values, pad) for pad in sorted(assign)]
     return BucketedSide(buckets=tuple(buckets), num_items=num_items)
+
+
+# Block size of stable_mean: the mean is a function of fixed value-position
+# blocks, as in the JAX package's StableMeanAccumulator.
+MEAN_BLOCK = 1 << 20
+
+
+def stable_mean(vals: np.ndarray) -> float:
+    """The training mean that ``build_distributed_data`` centers on.
+
+    Each ``MEAN_BLOCK`` block of the float32 values is summed with
+    ``np.sum(..., dtype=float64)`` and the block sums are combined with
+    ``math.fsum``: bitwise ``repro.data.sparse.stable_mean``.
+    """
+    vals = np.asarray(vals, dtype=np.float32)
+    if not len(vals):
+        return 0.0
+    sums = [float(np.sum(vals[i : i + MEAN_BLOCK], dtype=np.float64))
+            for i in range(0, len(vals), MEAN_BLOCK)]
+    return math.fsum(sums) / len(vals)
 
 
 def train_test_split(

@@ -1,12 +1,15 @@
-"""BPMF engine CLI of the PyTorch port (sequential sampler)::
+"""BPMF engine CLI of the PyTorch port::
 
     PYTHONPATH=src python -m repro_torch.launch.bpmf --dataset synthetic --sweeps 20
     PYTHONPATH=src python -m repro_torch.launch.bpmf --device cpu --K 8 --sweeps 5
+    PYTHONPATH=src python -m repro_torch.launch.bpmf --device cpu --backend ring --num-shards 2
 
 Prints per-sweep sample and posterior-mean RMSE. Runs on the GPU unless
 ``--device cpu`` is given, and exits with an error when there is no GPU
-and no CPU request. The flags are the sequential ones of
-``python -m repro.launch.bpmf``, plus ``--device``.
+and no CPU request. The flags are those of ``python -m repro.launch.bpmf``
+that this port runs, with the same names and defaults, plus ``--device``.
+The ring backends put shard d on card ``d % n`` of the n visible cards, so
+``--num-shards 4`` on one card runs all four shards there.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m repro_torch.launch.bpmf",
         description="Run BPMF Gibbs sampling through the repro_torch engine.",
     )
+    p.add_argument("--backend", default="sequential",
+                   help="sequential | ring | ring_async | allgather (registry name)")
     p.add_argument("--dataset", default="synthetic", help="synthetic (registry name)")
     p.add_argument("--users", type=int, default=400, help="synthetic: number of users")
     p.add_argument("--movies", type=int, default=300, help="synthetic: number of movies")
@@ -31,6 +36,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Gibbs sweeps between host reads of the metrics (same samples)")
     p.add_argument("--burn-in", type=int, default=8)
     p.add_argument("--seed", type=int, default=0, help="split + sampler seed")
+    p.add_argument("--num-shards", type=int, default=0,
+                   help="distributed shard count (0 = one per visible card; one on the CPU)")
+    p.add_argument("--pipeline-depth", type=int, default=1,
+                   help="ring_async: ring rotations kept in flight (d >= 1)")
     p.add_argument("--gram-impl", default="auto",
                    choices=["auto", "pallas_fused", "pallas", "xla"],
                    help="Gram dispatch: auto/pallas/pallas_fused = the CUDA kernel "
@@ -50,6 +59,9 @@ def main(argv: list[str] | None = None) -> int:
         dataset_kw = dict(num_users=args.users, num_movies=args.movies, nnz=args.nnz)
     coo = load_dataset(args.dataset, **dataset_kw)
     cfg = BPMFConfig().replace(
+        name=args.backend,
+        num_shards=args.num_shards,
+        pipeline_depth=args.pipeline_depth,
         gram_impl=args.gram_impl,
         K=args.K,
         alpha=args.alpha,
@@ -60,8 +72,9 @@ def main(argv: list[str] | None = None) -> int:
     )
     engine = BPMFEngine(cfg, device=args.device)
     engine.prepare(coo)
+    shards = f" shards={engine.backend.num_shards}" if hasattr(engine.backend, "num_shards") else ""
     print(
-        f"backend=sequential device={engine.device} dataset={args.dataset} "
+        f"backend={args.backend}{shards} device={engine.device} dataset={args.dataset} "
         f"R: {coo.num_users} x {coo.num_movies}, {coo.nnz} ratings; "
         f"K={cfg.model.K} sweeps={cfg.run.num_sweeps}"
     )

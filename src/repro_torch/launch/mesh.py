@@ -1,0 +1,45 @@
+"""The BPMF ring of shard devices (the port of ``repro.launch.mesh.bpmf_ring``).
+
+The JAX package builds a 1-D ``Mesh`` over the first ``num_shards``
+devices. This port runs the ring from one process, so a ring is the
+ordered list of S shard devices: shard d sits on card ``d % n`` of the n
+visible cards, so S may exceed n and shards then share a card. On the CPU
+every shard sits on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.distributed import Ring
+
+
+def bpmf_ring(num_shards: int = 0, device: str | torch.device | None = None) -> Ring:
+    """A :class:`~repro_torch.core.distributed.Ring` of ``num_shards`` shards.
+
+    Args:
+        num_shards: Ring length S; 0 means one shard per visible card (one
+            shard on the CPU).
+        device: ``None`` or ``"cuda"`` spreads the shards over every visible
+            card; ``"cuda:i"`` keeps them all on card i; ``"cpu"`` puts them
+            on the CPU.
+
+    Raises:
+        ValueError: ``num_shards`` is negative.
+        RuntimeError: Shards are asked for on CUDA and no card is visible.
+    """
+    if num_shards < 0:
+        raise ValueError(f"num_shards must be >= 0, got {num_shards}")
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cpu":
+        return Ring([dev] * (num_shards or 1))
+    if dev.type != "cuda":
+        raise ValueError(f"a ring runs on CUDA cards or the CPU, got {dev}")
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n == 0:
+        raise RuntimeError(
+            f"{num_shards or 'one'} ring shard(s) asked for on CUDA, but no CUDA device "
+            "is visible; pass device='cpu' (CLI: --device cpu) to run on the CPU"
+        )
+    cards = [dev] if dev.index is not None else [torch.device("cuda", i) for i in range(n)]
+    S = num_shards or len(cards)
+    return Ring([cards[d % len(cards)] for d in range(S)])

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card: tests that need a GPU and import no JAX.
+"""The port's CUDA kernels on the card: tests that need a GPU and import no JAX.
 
 Every test here is marked ``cuda`` and skips itself without a CUDA device.
 On a GPU machine (which has no JAX) run them with
@@ -8,12 +8,17 @@ On a GPU machine (which has no JAX) run them with
 They hold the hand-written Gram kernel to its plain version at the shapes of
 tests/test_kernels.py and at K in {4, 6}, check that a launch moves
 ``LAUNCHES`` and not ``PLAIN_CALLS``, and that ``impl="xla"`` refuses a CUDA
-tensor instead of quietly replacing the kernel.
+tensor instead of quietly replacing the kernel. The fused ring-step kernel
+is held to its plain version at the edge shapes of tests/test_gram_fused.py
+(several buckets whose item ids repeat, B not a multiple of tb, all-padding
+buckets, item = -1, rows longer than one chunk), in float32 and bfloat16,
+with the same allowance, and must give equal bits on two launches.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.types import Bucket
 from repro_torch.kernels import bpmf_gram as gram_kernel
 from repro_torch.kernels import ops
 
@@ -86,3 +91,80 @@ def test_cuda_kernel_is_deterministic(cuda):
     a = ops.bpmf_gram(*case)
     b = ops.bpmf_gram(*case)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+# name: (Ns, K, cap, [(B, P, dead rows, all empty)]), tests/test_gram_fused.py's edge shapes
+FUSED_CASES = {
+    "multibucket": (96, 16, 64, [(16, 8, (), False), (9, 32, (), False), (4, 128, (), False)]),
+    "B_not_multiple_of_tb": (64, 8, 24, [(13, 64, (), False)]),
+    "all_padding": (32, 8, 16, [(8, 16, (), True), (8, 16, (), False)]),
+    "item_minus_one": (48, 16, 20, [(10, 32, (0, 3, 9), False)]),
+    "multichunk": (64, 16, 16, [(8, 300, (), False)]),
+    "K32_long_rows": (500, 32, 40, [(24, 2048, (), False), (40, 8, (), False)]),
+    "K128": (50, 128, 6, [(4, 70, (), False)]),
+}
+
+
+def _fused_case(name, device):
+    Ns, K, cap, shapes = FUSED_CASES[name]
+    rng = np.random.default_rng(sorted(FUSED_CASES).index(name))
+    X = torch.from_numpy(rng.normal(size=(Ns, K)).astype(np.float32)).to(device)
+    buckets = []
+    for B, P, dead, empty in shapes:
+        nnz = np.zeros(B, np.int32) if empty else rng.integers(0, P + 1, B).astype(np.int32)
+        nbr = rng.integers(0, Ns, (B, P)).astype(np.int32)
+        val = rng.normal(size=(B, P)).astype(np.float32)
+        val[np.arange(P)[None] >= nnz[:, None]] = 0.0
+        ids = rng.permutation(cap)[:B].astype(np.int32)
+        ids[list(dead)] = -1
+        buckets.append(Bucket(*(torch.from_numpy(a).to(device) for a in (ids, nbr, val, nnz))))
+    G = torch.from_numpy(rng.normal(size=(cap, K, K)).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.normal(size=(cap, K)).astype(np.float32)).to(device)
+    return X, tuple(buckets), G, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FUSED_CASES))
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernel_matches_plain(cuda, name, compute_dtype):
+    X, buckets, G0, g0 = _fused_case(name, cuda)
+    step = ops.fused_step(buckets)
+    args = (X, step.nbr, step.val, step.item, step.cnt, 2.0, compute_dtype, step.order)
+    launches, plain = gram_kernel.FUSED_LAUNCHES, gram_kernel.FUSED_PLAIN_CALLS
+    G, g = gram_kernel.bpmf_gram_fused(G0.clone(), g0.clone(), *args)
+    G2, g2 = gram_kernel.bpmf_gram_fused(G0.clone(), g0.clone(), *args)
+    torch.cuda.synchronize()
+    assert gram_kernel.FUSED_LAUNCHES == launches + 2 and gram_kernel.FUSED_PLAIN_CALLS == plain
+    assert torch.equal(G, G2) and torch.equal(g, g2)
+    # from zero sums the kernel's output is alpha times the row's Gram: the
+    # per-bucket allowance 16 eps sqrt(P) sqrt(G_ii G_jj) applies, with P the
+    # most ratings a row has in the step
+    Z, z = gram_kernel.bpmf_gram_fused(torch.zeros_like(G0), torch.zeros_like(g0), *args)
+    Zw, zw = gram_kernel.bpmf_gram_fused_plain(torch.zeros_like(G0), torch.zeros_like(g0), *args)
+    per_row = torch.zeros(G0.shape[0], dtype=torch.int64, device=cuda)
+    live = step.item >= 0
+    per_row.index_add_(0, step.item[live].long(), step.cnt[live].long())
+    tol = 16 * torch.finfo(torch.float32).eps * max(int(per_row.max()), 1) ** 0.5
+    d = torch.diagonal(Zw, dim1=1, dim2=2).clamp_min(0)
+    assert ((Z - Zw).abs() <= tol * (d[:, :, None] * d[:, None, :]).sqrt() + 1e-30).all()
+    # with running sums the two differ by float32 rounding of those sums
+    Gw, gw = gram_kernel.bpmf_gram_fused_plain(G0.clone(), g0.clone(), *args)
+    scale = 1 + (d[:, :, None] * d[:, None, :]).sqrt()
+    assert ((G - Gw).abs() <= (tol + 4 * torch.finfo(torch.float32).eps) * (scale + G0.abs())).all()
+    untouched = torch.ones(G0.shape[0], dtype=torch.bool, device=cuda)
+    untouched[step.order.item.long()] = False
+    assert torch.equal(G[untouched], G0[untouched]) and torch.equal(g[untouched], g0[untouched])
+
+
+@pytest.mark.cuda
+def test_fused_step_impls_on_cuda(cuda):
+    X, buckets, G0, g0 = _fused_case("multibucket", cuda)
+    with pytest.raises(ValueError, match="CPU"):
+        ops.bpmf_gram_step(G0.clone(), g0.clone(), X, buckets, alpha=2.0, gram_impl="xla")
+    launches = gram_kernel.FUSED_LAUNCHES
+    fused = ops.bpmf_gram_step(G0.clone(), g0.clone(), X, buckets, alpha=2.0, gram_impl="auto")
+    assert gram_kernel.FUSED_LAUNCHES == launches + 1
+    per_bucket = ops.bpmf_gram_step(G0.clone(), g0.clone(), X, buckets, alpha=2.0, gram_impl="pallas")
+    torch.cuda.synchronize()
+    for a, b in zip(fused, per_bucket):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
