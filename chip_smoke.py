@@ -7,21 +7,26 @@ Phases (any failure stops the run with a non-zero exit and no result line):
 
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build the CUDA kernels (one source, ``src/repro_torch/kernels/csrc/
-   bpmf_gram.cu``, with the per-bucket and the fused ring-step kernel) with
-   nvcc;
+   bpmf_gram.cu``, with the per-bucket and the fused ring-step kernel and
+   their second passes) with nvcc, and print ptxas's registers and spills
+   of each kernel instance;
 3. hold the Gram kernel against its plain PyTorch version on the card, in
-   float32 and bfloat16, at the shapes of tests/test_kernels.py and at three
-   MovieLens-20M bucket shapes, and time the kernel, the plain version and
-   ``torch.bmm`` on the pre-gathered block (contraction only, gather
-   excluded): one JSON line per shape; then the same for the fused kernel at
-   the edge shapes of tests/test_gram_fused.py;
+   float32 and bfloat16, at the shapes of tests/test_kernels.py, at three
+   MovieLens-20M bucket shapes and where its pieces turn (nnz = W - 1, W,
+   W + 1, P, and one item with all 131,072 slots), and time the kernel, the
+   plain version and ``torch.bmm`` on the pre-gathered block (contraction
+   only, gather excluded): one JSON line per shape; then the same for the
+   fused kernel at the edge shapes of tests/test_gram_fused.py and at a row
+   whose chunks span three pieces;
 4. the sequential sampler at MovieLens-20M scale (138,493 x 27,278, 20 M
    ratings, K = 32, default pads) through ``BPMFEngine``: 4 sweeps, with the
-   launch counters reset just before and read just after; then every bucket
-   of that data held against the plain version and timed; then the fused
-   kernel on the movies side's buckets flattened into one step, which is
-   step 0 of the movies side of a 1-shard ring (it holds the P = 131,072
-   class);
+   launch counters reset just before and read just after (one launch per
+   bucket, and one second pass per bucket that is split); then every bucket
+   of that data held against the plain version and timed beside
+   ``torch.bmm`` on its pre-gathered block, with its milliseconds per
+   million real ratings; then the fused kernel on the movies side's buckets
+   flattened into one step, which is step 0 of the movies side of a 1-shard
+   ring (it holds the P = 131,072 class);
 5. requests: ``predict`` with ``return_std`` and ``top_k`` on the posterior,
    checked against numpy;
 6. one more sweep under torch.profiler: device time by kernel, kernel
@@ -32,10 +37,16 @@ Phases (any failure stops the run with a non-zero exit and no result line):
    sweep's RMSE held to the sequential phase's; then ``ring_async`` (depth
    2) and ``allgather`` for 2 sweeps from the same start, held to the ring's
    state; one traced ring sweep; and every (side, step, shard) layout of a
-   sweep held against the fused kernel's plain version and timed;
+   sweep held against the fused kernel's plain version and timed beside
+   ``torch.bmm`` on its pre-gathered chunks;
 8. the small seeded task of tests/test_posterior_quality.py on the card,
    inside its recorded RMSE band;
-9. the ``kernels`` JSON line, the card line again, and last the ``ok`` line.
+9. the ``yardsticks`` line: each kernel against ``torch.bmm`` where this
+   change is held to it (the heaviest-movie bucket, every bucket with at
+   least 1 M real ratings, every movies-side ring layout) and the balance
+   of the movies buckets' device time per real rating; these are measured
+   and printed, not gates;
+10. the ``kernels`` JSON line, the card line again, and last the ``ok`` line.
 
 Tolerance of a kernel against its plain version: the plain version
 contracts in float64 (the correctly rounded sum), the kernel sums float32
@@ -44,13 +55,15 @@ float32 epsilons times sqrt(P) times sum_p |x_i x_j|, which is at most
 sqrt(G_ii G_jj). The check allows 16 eps sqrt(P) sqrt(G_ii G_jj), and
 sqrt(G_ii sum_p val^2) for g. The fused kernel is compared from zero sums,
 where its output is alpha times such a Gram, with P the most ratings one
-row has in the step.
+row has in the step. Both kernels sum a long row in pieces and add the
+pieces in a second pass, which only shortens the float32 chains.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -88,6 +101,25 @@ def card_line() -> str:
     return out[0]
 
 
+def ptxas_report(log: str) -> list[dict]:
+    """Registers and spill bytes of each kernel instance, from nvcc's ``-Xptxas -v`` output."""
+    out = []
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            k = re.search(r"\d(bpmf_gram\w*?kernel)(?:ILi(\d+)E)?", m.group(1))
+            name = (k.group(1) + (f"<MT={k.group(2)}>" if k.group(2) else "")) if k else m.group(1)
+            out.append({"kernel": name})
+        elif out:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m:
+                out[-1]["spill_store_bytes"], out[-1]["spill_load_bytes"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                out[-1]["registers"] = int(m.group(1))
+    return out
+
+
 def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events."""
     for _ in range(warmup):
@@ -103,6 +135,26 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, launches: int = 20) -> float:
+    """Milliseconds per call of ``fn`` over a run of back-to-back calls, by CUDA events.
+
+    The device time of a kernel: the host enqueues the next call while the
+    device runs this one, so the host's own latency per call (which
+    :func:`time_ms` includes, the device being idle when each call starts)
+    is hidden wherever the device is the slower of the two.
+    """
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
 
 
 def gram_work(nnz_total: int, B: int, Ns: int, K: int) -> tuple[float, float]:
@@ -139,22 +191,43 @@ def gram_error(torch, got, want, val, P: int) -> tuple[float, float]:
     return err, ratio
 
 
-def random_bucket(torch, gen, Ns: int, K: int, B: int, P: int, lo_nnz: int):
+def random_bucket(torch, gen, Ns: int, K: int, B: int, P: int, lo_nnz: int, nnz=None):
+    """A bucket with nnz drawn from [lo_nnz, P], or the given ``nnz`` list."""
     dev = "cuda"
     X = (0.5 * torch.randn(Ns, K, generator=gen)).to(dev)
-    nnz = torch.randint(lo_nnz, P + 1, (B,), generator=gen, dtype=torch.int32).to(dev)
+    if nnz is None:
+        nnz = torch.randint(lo_nnz, P + 1, (B,), generator=gen, dtype=torch.int32).to(dev)
+    else:
+        nnz = torch.tensor(nnz, dtype=torch.int32, device=dev)
     nbr = torch.randint(0, Ns, (B, P), generator=gen, dtype=torch.int32).to(dev)
     mask = torch.arange(P, device=dev)[None] < nnz[:, None]
     val = (torch.randn(B, P, generator=gen).to(dev) * mask).contiguous()
     return X, nbr, val, nnz
 
 
+def bmm_ms(torch, X, nbr, val, nnz, reps: int) -> float:
+    """``torch.bmm`` of the pre-gathered masked block ``Y = [x | val]`` with itself: contraction only."""
+    P = nbr.shape[1]
+    mask = torch.arange(P, device="cuda")[None] < nnz[:, None]
+    Y = torch.cat([X[nbr.long()] * mask[..., None], (val * mask)[..., None]], dim=-1)
+    Yt = Y.transpose(1, 2)
+    ms = time_ms(torch, lambda: torch.bmm(Yt, Y), reps)
+    del Y, Yt, mask
+    return ms
+
+
 def phase_kernel_shapes(torch, gram_kernel) -> None:
     gen = torch.Generator().manual_seed(0)
-    shapes = [(Ns, K, B, P, 0, "tests/test_kernels.py") for Ns, K, B, P in TEST_SHAPES]
-    shapes += [(Ns, 32, B, P, lo, "ML20M bucket") for Ns, B, P, lo in ML20M_SHAPES]
-    for Ns, K, B, P, lo, origin in shapes:
-        X, nbr, val, nnz = random_bucket(torch, gen, Ns, K, B, P, lo)
+    shapes = [(Ns, K, B, P, 0, None, "tests/test_kernels.py") for Ns, K, B, P in TEST_SHAPES]
+    shapes += [(Ns, 32, B, P, lo, None, "ML20M bucket") for Ns, B, P, lo in ML20M_SHAPES]
+    # where the pieces turn: W - 1, W, W + 1 and P ratings, and one item with every slot real
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    W = gram_kernel.piece_width(6, 4 * gram_kernel.MIN_PIECE_RATINGS, sms)
+    shapes += [(27_278, 32, 6, 4 * gram_kernel.MIN_PIECE_RATINGS, 0,
+                [0, W - 1, W, W + 1, 4 * gram_kernel.MIN_PIECE_RATINGS, 3], "split boundaries"),
+               (138_493, 32, 1, 131_072, 0, [131_072], "one item, every slot")]
+    for Ns, K, B, P, lo, nnz_list, origin in shapes:
+        X, nbr, val, nnz = random_bucket(torch, gen, Ns, K, B, P, lo, nnz_list)
         nnz_total = int(nnz.sum())
         big = B * P > 1_000_000
         for cd in (torch.float32, torch.bfloat16):
@@ -167,18 +240,15 @@ def phase_kernel_shapes(torch, gram_kernel) -> None:
                 raise AssertionError(f"two launches on the same inputs differ at {(Ns, K, B, P)}")
             del got, again, want
             line = {"phase": "kernel_vs_plain", "shape": origin, "Ns": Ns, "K": K, "B": B, "P": P,
-                    "nnz": nnz_total, "compute_dtype": str(cd).replace("torch.", ""),
+                    "W": gram_kernel.piece_width(B, P, sms), "nnz": nnz_total,
+                    "compute_dtype": str(cd).replace("torch.", ""),
                     "max_abs_err": err, "err_over_allowance": ratio}
             if cd == torch.float32:
                 reps = 5 if big else 20
                 line["kernel_ms"] = time_ms(torch, lambda: gram_kernel.bpmf_gram(X, nbr, val, nnz), reps)
                 line["plain_ms"] = time_ms(
                     torch, lambda: gram_kernel.bpmf_gram_plain(X, nbr, val, nnz), 3 if big else 10)
-                mask = torch.arange(P, device="cuda")[None] < nnz[:, None]
-                Y = torch.cat([X[nbr.long()] * mask[..., None], val[..., None]], dim=-1)
-                Yt = Y.transpose(1, 2)
-                line["bmm_contraction_only_ms"] = time_ms(torch, lambda: torch.bmm(Yt, Y), reps)
-                del Y, Yt, mask
+                line["bmm_contraction_only_ms"] = bmm_ms(torch, X, nbr, val, nnz, reps)
                 line["bound_ms"] = bound_ms(*gram_work(nnz_total, B, Ns, K))
             print(json.dumps(line), flush=True)
         del X, nbr, val, nnz
@@ -218,8 +288,9 @@ def fused_error(torch, got, want, step, alpha: float) -> tuple[float, float]:
 def check_fused(torch, gram_kernel, X, step, cap: int, label: dict, full: bool) -> dict:
     """The fused kernel against its plain version on one layout, from zero sums, and timed.
 
-    ``full`` adds bfloat16, two-launch bit equality and the ``bmm``
-    contraction on the pre-gathered chunks; each dtype prints one JSON line.
+    Timed beside ``torch.bmm`` on the pre-gathered chunks (contraction
+    only). ``full`` adds bfloat16 and two-launch bit equality; each dtype
+    prints one JSON line.
     """
     K = X.shape[1]
     byt, fl = fused_work(step, X.shape[0], K)
@@ -235,8 +306,10 @@ def check_fused(torch, gram_kernel, X, step, cap: int, label: dict, full: bool) 
         want = launch(*zeros(), fn=gram_kernel.bpmf_gram_fused_plain)
         torch.cuda.synchronize()
         err, ratio = fused_error(torch, got, want, step, ALPHA)
+        plan = step.order.pieces
         line = {"phase": "fused_vs_plain", **label, "Ns": X.shape[0], "K": K, "cap": cap,
-                "chunks": step.cnt.shape[0], "live_rows": step.num_rows,
+                "chunks": step.cnt.shape[0], "live_rows": step.num_rows, "pieces": plan.num_pieces,
+                "split_rows": plan.num_split_rows,
                 "ratings": int(step.cnt.sum()), "compute_dtype": str(cd).replace("torch.", ""),
                 "max_abs_err": err, "err_over_allowance": ratio}
         if full:
@@ -249,19 +322,14 @@ def check_fused(torch, gram_kernel, X, step, cap: int, label: dict, full: bool) 
         if cd == torch.float32:
             G, g = zeros()
             line["kernel_ms"] = time_ms(torch, lambda: launch(G, g), 5)
+            line["kernel_device_ms"] = device_ms(torch, lambda: launch(G, g))
             line["plain_ms"] = time_ms(torch, lambda: launch(G, g, fn=gram_kernel.bpmf_gram_fused_plain), 2)
             del G, g
-            if full:
-                pc = step.nbr.shape[1]
-                mask = (torch.arange(pc, device="cuda")[None] < step.cnt[:, None]).float()
-                Y = torch.cat([X[step.nbr.long()] * mask[..., None], (step.val * mask)[..., None]], -1)
-                Yt = Y.transpose(1, 2)
-                line["bmm_contraction_only_ms"] = time_ms(torch, lambda: torch.bmm(Yt, Y), 5)
-                del Y, Yt, mask
+            line["bmm_contraction_only_ms"] = bmm_ms(torch, X, step.nbr, step.val, step.cnt, 5)
             line["bound_ms"] = bound_ms(byt, fl)
             line["bound_by"] = "operations" if fl / PEAK_F32_FLOPS > byt / PEAK_BYTES_PER_S else "bytes"
-            out = {"ms": line["kernel_ms"], "plain_ms": line["plain_ms"], "bytes": byt, "flops": fl,
-                   "err": err}
+            out = {"ms": line["kernel_ms"], "device_ms": line["kernel_device_ms"], "plain_ms": line["plain_ms"],
+                   "bytes": byt, "flops": fl, "err": err, "bmm_ms": line["bmm_contraction_only_ms"]}
         print(json.dumps(line), flush=True)
         torch.cuda.empty_cache()
     return out
@@ -282,6 +350,21 @@ def phase_fused_shapes(torch, np, gram_kernel, ops, Bucket) -> None:
             buckets.append(Bucket(*(torch.from_numpy(a).cuda() for a in (ids, nbr, val, nnz))))
         check_fused(torch, gram_kernel, X, ops.fused_step(tuple(buckets)), cap,
                     {"shape": f"tests/test_gram_fused.py {name}"}, full=True)
+    # row 5 owns 48 chunks in three buckets, other rows' chunks between them:
+    # three pieces of 16 chunks, added by the second pass
+    rng = np.random.default_rng(13)
+    X = torch.from_numpy(rng.normal(size=(27_278, 32)).astype(np.float32)).cuda()
+    buckets = []
+    for ids, nnz in (([5, 0], [2048, 100]), ([1, 5], [7, 2048]), ([2, 5, 3], [50, 2048, 1])):
+        nbr = rng.integers(0, X.shape[0], (len(ids), 2048)).astype(np.int32)
+        val = rng.normal(size=(len(ids), 2048)).astype(np.float32)
+        val[np.arange(2048)[None] >= np.asarray(nnz)[:, None]] = 0.0
+        arrays = (np.asarray(ids, np.int32), nbr, val, np.asarray(nnz, np.int32))
+        buckets.append(Bucket(*(torch.from_numpy(a).cuda() for a in arrays)))
+    step = ops.fused_step(tuple(buckets))
+    if step.order.pieces.row_len.tolist() != [3]:
+        raise AssertionError(f"the three-piece layout has split rows {step.order.pieces.row_len.tolist()}")
+    check_fused(torch, gram_kernel, X, step, 8, {"shape": "row over three pieces"}, full=True)
 
 
 def phase_ml20m(torch, gram_kernel, repro_torch_mods) -> dict:
@@ -301,9 +384,13 @@ def phase_ml20m(torch, gram_kernel, repro_torch_mods) -> dict:
         "train_ratings": {side: getattr(data, side).total_ratings() for side in ("users", "movies")},
     }), flush=True)
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split_buckets = sum(1 for side in (data.users, data.movies) for b in side.buckets
+                        if b.P > gram_kernel.piece_width(b.B, b.P, sms))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gram_kernel.LAUNCHES = 0
+    gram_kernel.REDUCE_LAUNCHES = 0
     gram_kernel.PLAIN_CALLS = 0
     block_s = []
     t_prev = time.perf_counter()
@@ -313,14 +400,16 @@ def phase_ml20m(torch, gram_kernel, repro_torch_mods) -> dict:
             block_s.append(now - t_prev)
             t_prev = now
     launches, plain_calls = gram_kernel.LAUNCHES, gram_kernel.PLAIN_CALLS
+    reduce_launches = gram_kernel.REDUCE_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
 
     rmse = [[m.rmse_sample, m.rmse_avg] for m in engine.history]
     print(json.dumps({
         "phase": "ml20m_sweeps", "sweeps": engine.num_sweeps_done,
         "seconds_per_sweep_by_block": [s / cfg.run.sweeps_per_block for s in block_s],
-        "rmse_sample_avg": rmse, "launches": launches, "plain_calls": plain_calls,
-        "buckets_per_sweep": n_buckets, "max_memory_allocated_bytes": peak,
+        "rmse_sample_avg": rmse, "launches": launches, "reduce_launches": reduce_launches,
+        "plain_calls": plain_calls, "buckets_per_sweep": n_buckets,
+        "split_buckets_per_sweep": split_buckets, "max_memory_allocated_bytes": peak,
     }), flush=True)
     if not all(math.isfinite(v) for row in rmse for v in row):
         raise AssertionError(f"non-finite RMSE at ML20M scale: {rmse}")
@@ -329,12 +418,15 @@ def phase_ml20m(torch, gram_kernel, repro_torch_mods) -> dict:
     if launches != n_buckets * engine.num_sweeps_done:
         raise AssertionError(f"{launches} kernel launches, want {n_buckets} buckets x "
                              f"{engine.num_sweeps_done} sweeps")
+    if reduce_launches != split_buckets * engine.num_sweeps_done:
+        raise AssertionError(f"{reduce_launches} second passes, want {split_buckets} split buckets x "
+                             f"{engine.num_sweeps_done} sweeps")
     if plain_calls != 0:
         raise AssertionError(f"the main path ran the plain Gram version {plain_calls} times")
 
     # every bucket of the run, at the run's own factors: kernel vs plain, timed
     state = engine.state
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0}
+    totals = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bmm_ms": 0.0, "bytes": 0.0, "flops": 0.0}
     max_err = 0.0
     per_bucket = []
     for X, name, side in ((state.U, "movies", data.movies), (state.V, "users", data.users)):
@@ -345,24 +437,41 @@ def phase_ml20m(torch, gram_kernel, repro_torch_mods) -> dict:
             max_err = max(max_err, gram_error(torch, got, want, b.val, b.P)[0])
             del got, want
             ms = time_ms(torch, lambda: gram_kernel.bpmf_gram(X, b.nbr, b.val, b.nnz), 5)
+            dev_ms = device_ms(torch, lambda: gram_kernel.bpmf_gram(X, b.nbr, b.val, b.nnz))
             plain = time_ms(torch, lambda: gram_kernel.bpmf_gram_plain(X, b.nbr, b.val, b.nnz), 2)
+            bmm = bmm_ms(torch, X, b.nbr, b.val, b.nnz, 5)
             torch.cuda.empty_cache()
-            nnz = int(b.nnz.sum())
+            nnz_host = b.nnz.cpu().numpy()
+            nnz = int(nnz_host.sum())
+            W = gram_kernel.piece_width(b.B, b.P, sms)
+            item, _, _, direct = gram_kernel.bucket_pieces(nnz_host, b.P, W)
             byt, fl = gram_work(nnz, b.B, X.shape[0], X.shape[1])
-            per_bucket.append([name, b.P, b.B, nnz, int(b.nnz.max()), ms, plain, bound_ms(byt, fl)])
+            line = {"phase": "ml20m_bucket", "side": name, "P": b.P, "B": b.B, "nnz": nnz,
+                    "max_nnz": int(nnz_host.max()), "W": W, "working_blocks": int(item.shape[0]),
+                    "split_items": len(set(item[~direct].tolist())),
+                    "kernel_ms": ms, "kernel_device_ms": dev_ms, "plain_ms": plain,
+                    "bmm_contraction_only_ms": bmm, "bound_ms": bound_ms(byt, fl),
+                    "ms_per_million_ratings": 1e6 * ms / max(nnz, 1),
+                    "device_ms_per_million_ratings": 1e6 * dev_ms / max(nnz, 1)}
+            print(json.dumps(line), flush=True)
+            per_bucket.append(line)
             totals["ms"] += ms
+            totals["device_ms"] += dev_ms
             totals["plain_ms"] += plain
+            totals["bmm_ms"] += bmm
             totals["bytes"] += byt
             totals["flops"] += fl
     per_sweep = {
-        "phase": "ml20m_gram_per_sweep", "launches": n_buckets, "kernel_ms": totals["ms"],
-        "plain_ms": totals["plain_ms"], "bound_ms": bound_ms(totals["bytes"], totals["flops"]),
+        "phase": "ml20m_gram_per_sweep", "launches": n_buckets, "reduce_launches": split_buckets,
+        "kernel_ms": totals["ms"], "kernel_device_ms": totals["device_ms"], "plain_ms": totals["plain_ms"],
+        "bmm_contraction_only_ms": totals["bmm_ms"], "bound_ms": bound_ms(totals["bytes"], totals["flops"]),
         "bound_by": "operations" if totals["flops"] / PEAK_F32_FLOPS > totals["bytes"] / PEAK_BYTES_PER_S
         else "bytes", "max_abs_err": max_err, "bytes": totals["bytes"], "flops": totals["flops"],
-        "buckets_side_P_B_nnz_maxnnz_kernel_plain_bound_ms": per_bucket,
+        "buckets": per_bucket,
     }
-    print(json.dumps(per_sweep), flush=True)
-    return {"engine": engine, "launches": launches, "gram": per_sweep, "coo": coo, "cfg": cfg,
+    print(json.dumps({k: v for k, v in per_sweep.items() if k != "buckets"}), flush=True)
+    return {"engine": engine, "launches": launches, "reduce_launches": reduce_launches, "gram": per_sweep,
+            "coo": coo, "cfg": cfg,
             "steady_sweep_s": block_s[-1] / cfg.run.sweeps_per_block,
             "rmse_sample": [m.rmse_sample for m in engine.history]}
 
@@ -451,17 +560,21 @@ def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict) -> dict:
     engine.prepare(ml["coo"])
     b = engine.backend
     expected_per_sweep = b.data.fused_launches_per_sweep()
+    split_layouts = sum(1 for side in (b.data.users, b.data.movies) for per_step in side.fused
+                        for f in per_step if f is not None and f.order.pieces.num_split_rows)
     print(json.dumps({
         "phase": "ring_setup", "num_shards": b.num_shards, "shards_per_device": b.ring.shards_per_device(),
         "host_seconds": b.prepare_seconds, "cap": {"users": b.data.users.cap, "movies": b.data.movies.cap},
-        "fused_launches_per_sweep": expected_per_sweep,
+        "fused_launches_per_sweep": expected_per_sweep, "fused_second_passes_per_sweep": split_layouts,
         "buckets_per_step": {side: [len(per_step[0]) for per_step in getattr(b.data, side).steps]
                              for side in ("users", "movies")},
     }), flush=True)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for name in ("LAUNCHES", "PLAIN_CALLS", "FUSED_LAUNCHES", "FUSED_PLAIN_CALLS"):
+    counters = ("LAUNCHES", "REDUCE_LAUNCHES", "PLAIN_CALLS", "FUSED_LAUNCHES", "FUSED_REDUCE_LAUNCHES",
+                "FUSED_PLAIN_CALLS")
+    for name in counters:
         setattr(gram_kernel, name, 0)
     block_s, after_block1 = [], None
     t_prev = time.perf_counter()
@@ -472,8 +585,7 @@ def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict) -> dict:
             t_prev = now
             if after_block1 is None:
                 after_block1 = engine.state
-    counts = {name: getattr(gram_kernel, name)
-              for name in ("LAUNCHES", "PLAIN_CALLS", "FUSED_LAUNCHES", "FUSED_PLAIN_CALLS")}
+    counts = {name: getattr(gram_kernel, name) for name in counters}
     peak = torch.cuda.max_memory_allocated()
     rmse = [m.rmse_sample for m in engine.history]
     gap = [abs(a - b_) for a, b_ in zip(rmse, ml["rmse_sample"])]
@@ -488,7 +600,10 @@ def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict) -> dict:
     if counts["FUSED_LAUNCHES"] != expected_per_sweep * engine.num_sweeps_done:
         raise AssertionError(f"{counts['FUSED_LAUNCHES']} fused launches, want {expected_per_sweep} "
                              f"per sweep x {engine.num_sweeps_done} sweeps")
-    if counts["PLAIN_CALLS"] or counts["FUSED_PLAIN_CALLS"] or counts["LAUNCHES"]:
+    if counts["FUSED_REDUCE_LAUNCHES"] != split_layouts * engine.num_sweeps_done:
+        raise AssertionError(f"{counts['FUSED_REDUCE_LAUNCHES']} fused second passes, want {split_layouts} "
+                             f"per sweep x {engine.num_sweeps_done} sweeps")
+    if counts["PLAIN_CALLS"] or counts["FUSED_PLAIN_CALLS"] or counts["LAUNCHES"] or counts["REDUCE_LAUNCHES"]:
         raise AssertionError(f"the ring ran something other than the fused kernel: {counts}")
     if not all(math.isfinite(v) for v in rmse) or max(gap) > 1e-3:
         raise AssertionError(f"ring RMSE {rmse} is not within 1e-3 of the sequential {ml['rmse_sample']}")
@@ -512,6 +627,7 @@ def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict) -> dict:
             raise AssertionError(f"{mode} differs from ring by {diff} after 2 sweeps")
         del st
     return {"engine": engine, "launches": counts["FUSED_LAUNCHES"],
+            "reduce_launches": counts["FUSED_REDUCE_LAUNCHES"],
             "steady_sweep_s": block_s[-1] / cfg.run.sweeps_per_block}
 
 
@@ -519,7 +635,9 @@ def phase_ring_layouts(torch, gram_kernel, engine) -> dict:
     """Every (side, step, shard) layout of one ring sweep, at the run's final factors."""
     b, state = engine.backend, engine.state
     S = b.num_shards
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0, "err": 0.0, "launches": 0}
+    totals = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bmm_ms": 0.0, "bytes": 0.0, "flops": 0.0,
+              "err": 0.0, "launches": 0, "second_passes": 0}
+    per_layout = []
     for side_name, X_opp in (("movies", state.U), ("users", state.V)):
         side = getattr(b.data, side_name)
         for t in range(S):
@@ -531,17 +649,56 @@ def phase_ring_layouts(torch, gram_kernel, engine) -> dict:
                 r = check_fused(torch, gram_kernel, X_opp[(d - t) % S], step, side.cap,
                                 {"shape": f"ML20M ring S={S}", "side": side_name, "step": t, "shard": d},
                                 full=full)
-                for k in ("ms", "plain_ms", "bytes", "flops"):
+                for k in ("ms", "device_ms", "plain_ms", "bmm_ms", "bytes", "flops"):
                     totals[k] += r[k]
                 totals["err"] = max(totals["err"], r["err"])
                 totals["launches"] += 1
+                totals["second_passes"] += bool(step.order.pieces.num_split_rows)
+                per_layout.append({"side": side_name, "step": t, "shard": d, "ms": r["ms"], "bmm_ms": r["bmm_ms"]})
     bound = bound_ms(totals["bytes"], totals["flops"])
-    per_sweep = {"phase": "ring_fused_per_sweep", "launches": totals["launches"], "kernel_ms": totals["ms"],
-                 "plain_ms": totals["plain_ms"], "bound_ms": bound,
+    per_sweep = {"phase": "ring_fused_per_sweep", "launches": totals["launches"],
+                 "second_passes": totals["second_passes"], "kernel_ms": totals["ms"],
+                 "kernel_device_ms": totals["device_ms"],
+                 "plain_ms": totals["plain_ms"], "bmm_contraction_only_ms": totals["bmm_ms"], "bound_ms": bound,
                  "bound_by": "operations" if totals["flops"] / PEAK_F32_FLOPS > totals["bytes"] / PEAK_BYTES_PER_S
                  else "bytes", "max_abs_err": totals["err"], "bytes": totals["bytes"], "flops": totals["flops"]}
     print(json.dumps(per_sweep), flush=True)
+    per_sweep["layouts"] = per_layout
     return per_sweep
+
+
+def phase_yardsticks(gram: dict, fused: dict) -> dict:
+    """Each kernel against ``torch.bmm`` (contraction only) where it is held to it, and the balance.
+
+    Measured and printed, not gates: the heaviest-movie bucket, every
+    bucket with at least 1 M real ratings, every movies-side ring layout
+    (single calls on both sides); and each movies bucket's device time per
+    real rating over the P = 512 movies bucket's, with the same ratio of
+    single-call times beside it (a bucket of a few items takes well under
+    0.1 ms on the device, so the host's latency per call weighs on it).
+    """
+    buckets = gram["buckets"]
+    heaviest = max((b for b in buckets if b["side"] == "movies"), key=lambda b: b["P"])
+    held = [b for b in buckets if b is heaviest or b["nnz"] >= 1_000_000]
+    movies = [b for b in buckets if b["side"] == "movies"]
+    ref = next(b for b in movies if b["P"] == 512)["ms_per_million_ratings"]
+    ref_dev = next(b for b in movies if b["P"] == 512)["device_ms_per_million_ratings"]
+    layouts = [lay for lay in fused["layouts"] if lay["side"] == "movies"]
+    out = {
+        "phase": "yardsticks",
+        "buckets_kernel_over_bmm": {f"{b['side']} P={b['P']}": b["kernel_ms"] / b["bmm_contraction_only_ms"]
+                                    for b in held},
+        "movies_layouts_kernel_over_bmm_max": max(lay["ms"] / lay["bmm_ms"] for lay in layouts),
+        "movies_buckets_device_ms_per_rating_over_P512": {
+            b["P"]: b["device_ms_per_million_ratings"] / ref_dev for b in movies},
+        "movies_buckets_single_call_ms_per_rating_over_P512": {
+            b["P"]: b["ms_per_million_ratings"] / ref for b in movies},
+    }
+    out["no_slower_than_bmm"] = (max(out["buckets_kernel_over_bmm"].values()) <= 1.0
+                                 and out["movies_layouts_kernel_over_bmm_max"] <= 1.0)
+    out["balanced_within_3x"] = max(out["movies_buckets_device_ms_per_rating_over_P512"].values()) <= 3.0
+    print(json.dumps(out), flush=True)
+    return out
 
 
 def phase_small_task(gram_kernel, BPMFConfig, BPMFEngine, load_dataset) -> None:
@@ -583,9 +740,8 @@ def main() -> int:
     t_all = time.perf_counter()
 
     built = load_library("bpmf_gram")
-    ptxas = [ln.strip() for ln in built.log.splitlines() if "registers" in ln or "spill" in ln]
     print(json.dumps({"phase": "build", "nvcc_seconds": built.seconds, "library": built.path.name,
-                      "ptxas": ptxas}), flush=True)
+                      "ptxas": ptxas_report(built.log)}), flush=True)
 
     phase_kernel_shapes(torch, gram_kernel)
     phase_fused_shapes(torch, np, gram_kernel, ops, Bucket)
@@ -602,6 +758,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_small_task(gram_kernel, BPMFConfig, BPMFEngine, load_dataset)
 
+    phase_yardsticks(ml["gram"], fused)
     gram = ml["gram"]
     kernels = {"kernels": [{
         "name": "bpmf_gram",
@@ -614,9 +771,14 @@ def main() -> int:
         "plain_ms": gram["plain_ms"],
         "bound_ms": gram["bound_ms"],
         "bound_by": gram["bound_by"],
-        "library_ms": None,
-        "note": f"ms, plain_ms and bound_ms cover the {gram['launches']} launches of one "
-                "ML20M sweep; no single PyTorch call computes the masked gather + Gram",
+        "library_ms": gram["bmm_contraction_only_ms"],
+        "device_ms": gram["kernel_device_ms"],
+        "reduce_launches": ml["reduce_launches"],
+        "note": f"ms, plain_ms, bound_ms and library_ms cover the {gram['launches']} launches of one "
+                "ML20M sweep (and their second passes); ms times single calls, device_ms runs of "
+                "back-to-back calls; no single PyTorch call computes the masked gather + Gram, so "
+                "library_ms is torch.bmm on each bucket's pre-gathered block, contraction only "
+                "(the gather not charged)",
     }, {
         "name": "bpmf_gram_fused",
         "route": "cuda",
@@ -628,10 +790,14 @@ def main() -> int:
         "plain_ms": fused["plain_ms"],
         "bound_ms": fused["bound_ms"],
         "bound_by": fused["bound_by"],
-        "library_ms": None,
-        "note": f"ms, plain_ms and bound_ms cover the {fused['launches']} launches of one ML20M "
-                f"sweep of the {RING_SHARDS}-shard ring, from zero sums; no single PyTorch call "
-                "computes the gather + Gram + per-item accumulation",
+        "library_ms": fused["bmm_contraction_only_ms"],
+        "device_ms": fused["kernel_device_ms"],
+        "reduce_launches": ring["reduce_launches"],
+        "note": f"ms, plain_ms, bound_ms and library_ms cover the {fused['launches']} launches of one "
+                f"ML20M sweep of the {RING_SHARDS}-shard ring (and their second passes), from zero sums; "
+                "ms times single calls, device_ms runs of back-to-back calls; "
+                "no single PyTorch call computes the gather + Gram + per-item accumulation, so "
+                "library_ms is torch.bmm on each layout's pre-gathered chunks, contraction only",
     }]}
     print(f"total seconds: {time.perf_counter() - t_all:.1f}", flush=True)
     print(json.dumps(kernels), flush=True)

@@ -116,7 +116,7 @@ def flatten_step(buckets, pc: int, tb: int):
 
 @dataclasses.dataclass(frozen=True)
 class FusedStep:
-    """One ring step's flattened layout and its item -> chunk order, built once."""
+    """One ring step's flattened layout, its item -> chunk order and piece plan, built once."""
 
     nbr: torch.Tensor  # [C, pc] int32
     val: torch.Tensor  # [C, pc] float32
@@ -131,9 +131,15 @@ class FusedStep:
 
 
 def fused_step(buckets, pc: int = FUSED_PC, tb: int = FUSED_TB) -> FusedStep:
-    """:func:`flatten_step` plus the kernel's :func:`~repro_torch.kernels.bpmf_gram.chunk_order`."""
+    """:func:`flatten_step` plus the kernel's :func:`~repro_torch.kernels.bpmf_gram.chunk_order`.
+
+    A block of the fused kernel walks at most ``PIECE_RATINGS // pc``
+    chunks of one row (16 at ``pc = 128``, 2,048 ratings), the same piece
+    size as the per-bucket kernel's.
+    """
     nbr, val, item, cnt = flatten_step(buckets, pc, tb)
-    return FusedStep(nbr, val, item, cnt, gram_kernel.chunk_order(item, cnt))
+    piece_chunks = max(1, gram_kernel.PIECE_RATINGS // pc)
+    return FusedStep(nbr, val, item, cnt, gram_kernel.chunk_order(item, cnt, piece_chunks))
 
 
 def bpmf_gram_step(

@@ -13,6 +13,13 @@ is held to its plain version at the edge shapes of tests/test_gram_fused.py
 (several buckets whose item ids repeat, B not a multiple of tb, all-padding
 buckets, item = -1, rows longer than one chunk), in float32 and bfloat16,
 with the same allowance, and must give equal bits on two launches.
+
+Both kernels split a long row into pieces on separate blocks and add the
+pieces in a second pass. The split cases hold them to the plain versions
+where the pieces turn: a bucket item with nnz = W - 1, W, W + 1 and P, one
+item with all P = 131,072 ratings, a fused row whose chunks, not adjacent,
+span three pieces, at K in {1, 31, 32, 33, 128}, in float32 and bfloat16,
+from a starting G that is not symmetric, with alpha = 2.
 """
 import numpy as np
 import pytest
@@ -168,3 +175,103 @@ def test_fused_step_impls_on_cuda(cuda):
     torch.cuda.synchronize()
     for a, b in zip(fused, per_bucket):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+
+
+def _gram_allowance(G, g, Gw, gw, val, P):
+    """The per-bucket allowance: 16 eps sqrt(P) sqrt(G_ii G_jj), sqrt(G_ii sum val^2) for g."""
+    tol = 16 * torch.finfo(torch.float32).eps * P**0.5
+    d = torch.diagonal(Gw, dim1=1, dim2=2)
+    v2 = (val.double() ** 2).sum(1, keepdim=True).float()
+    assert ((G - Gw).abs() <= tol * (d[:, :, None] * d[:, None, :]).sqrt()).all()
+    assert ((g - gw).abs() <= tol * (d * v2).sqrt()).all()
+
+
+def _split_bucket(seed, Ns, K, nnz, P, device):
+    rng = np.random.default_rng(seed)
+    nnz = np.asarray(nnz, np.int32)
+    X = rng.normal(size=(Ns, K)).astype(np.float32)
+    nbr = rng.integers(0, Ns, (len(nnz), P)).astype(np.int32)
+    val = rng.normal(size=(len(nnz), P)).astype(np.float32)
+    val[np.arange(P)[None] >= nnz[:, None]] = 0.0
+    return tuple(torch.from_numpy(a).to(device) for a in (X, nbr, val, nnz))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 128])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_at_piece_boundaries(cuda, K, compute_dtype):
+    B, P = 6, 4 * gram_kernel.MIN_PIECE_RATINGS
+    W = gram_kernel.piece_width(B, P, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert W < P  # the bucket is split
+    nnz = [0, W - 1, W, W + 1, P, 3]
+    case = _split_bucket(K, 400, K, nnz, P, cuda)
+    launches, reduces = gram_kernel.LAUNCHES, gram_kernel.REDUCE_LAUNCHES
+    G, g = ops.bpmf_gram(*case, compute_dtype=compute_dtype)
+    G2, g2 = ops.bpmf_gram(*case, compute_dtype=compute_dtype)
+    torch.cuda.synchronize()
+    assert (gram_kernel.LAUNCHES, gram_kernel.REDUCE_LAUNCHES) == (launches + 2, reduces + 2)
+    assert torch.equal(G, G2) and torch.equal(g, g2)
+    _gram_allowance(G, g, *gram_kernel.bpmf_gram_plain(*case, compute_dtype), case[2], P)
+    assert not G[0].any() and not g[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_one_item_with_all_slots(cuda, compute_dtype):
+    P = 131_072  # the heaviest MovieLens-20M bucket's pad, every slot real
+    case = _split_bucket(0, 27_278, 32, [P], P, cuda)
+    G, g = ops.bpmf_gram(*case, compute_dtype=compute_dtype)
+    G2, g2 = ops.bpmf_gram(*case, compute_dtype=compute_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(G, G2) and torch.equal(g, g2)
+    _gram_allowance(G, g, *gram_kernel.bpmf_gram_plain(*case, compute_dtype), case[2], P)
+
+
+def _three_piece_step(K, device):
+    """A ring-step layout where row 5 has 48 chunks in three buckets, others' chunks between."""
+    rng = np.random.default_rng(K)
+    cap, Ns = 8, 300
+    X = torch.from_numpy(rng.normal(size=(Ns, K)).astype(np.float32)).to(device)
+    buckets = []
+    for ids, nnz in (([5, 0], [2048, 100]), ([1, 5], [7, 2048]), ([2, 5, 3], [50, 2048, 1])):
+        B, P = len(ids), 2048
+        nbr = rng.integers(0, Ns, (B, P)).astype(np.int32)
+        val = rng.normal(size=(B, P)).astype(np.float32)
+        val[np.arange(P)[None] >= np.asarray(nnz)[:, None]] = 0.0
+        arrays = (np.asarray(ids, np.int32), nbr, val, np.asarray(nnz, np.int32))
+        buckets.append(Bucket(*(torch.from_numpy(a).to(device) for a in arrays)))
+    G = torch.from_numpy(rng.normal(size=(cap, K, K)).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.normal(size=(cap, K)).astype(np.float32)).to(device)
+    return X, ops.fused_step(tuple(buckets)), G, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 128])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernel_row_over_three_pieces(cuda, K, compute_dtype):
+    X, step, G0, g0 = _three_piece_step(K, cuda)
+    plan = step.order.pieces
+    assert plan.row_item.tolist() == [5] and plan.row_len.tolist() == [3]
+    args = (X, step.nbr, step.val, step.item, step.cnt, 2.0, compute_dtype, step.order)
+    reduces = gram_kernel.FUSED_REDUCE_LAUNCHES
+    G, g = gram_kernel.bpmf_gram_fused(G0.clone(), g0.clone(), *args)
+    G2, g2 = gram_kernel.bpmf_gram_fused(G0.clone(), g0.clone(), *args)
+    torch.cuda.synchronize()
+    assert gram_kernel.FUSED_REDUCE_LAUNCHES == reduces + 2
+    assert torch.equal(G, G2) and torch.equal(g, g2)
+    Z, z = gram_kernel.bpmf_gram_fused(torch.zeros_like(G0), torch.zeros_like(g0), *args)
+    Zw, zw = gram_kernel.bpmf_gram_fused_plain(torch.zeros_like(G0), torch.zeros_like(g0), *args)
+    tol = 16 * torch.finfo(torch.float32).eps * (3 * 2048) ** 0.5
+    d = torch.diagonal(Zw, dim1=1, dim2=2).clamp_min(0)
+    assert ((Z - Zw).abs() <= tol * (d[:, :, None] * d[:, None, :]).sqrt() + 1e-30).all()
+    v2 = torch.zeros(G0.shape[0], dtype=torch.float64, device=cuda)
+    live = step.item >= 0
+    v2.index_add_(0, step.item[live].long(), (step.val[live].double() ** 2).sum(1))
+    assert ((z - zw).abs() <= tol * (d * 2.0 * v2[:, None]).sqrt() + 1e-30).all()
+    # from the non-symmetric start, G[i][j] and G[j][i] each get the row's partial
+    Gw, gw = gram_kernel.bpmf_gram_fused_plain(G0.clone(), g0.clone(), *args)
+    scale = 1 + (d[:, :, None] * d[:, None, :]).sqrt()
+    assert ((G - Gw).abs() <= (tol + 4 * torch.finfo(torch.float32).eps) * (scale + G0.abs())).all()
+    untouched = torch.ones(G0.shape[0], dtype=torch.bool, device=cuda)
+    untouched[step.order.item.long()] = False
+    assert torch.equal(G[untouched], G0[untouched]) and torch.equal(g[untouched], g0[untouched])
