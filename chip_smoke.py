@@ -27,26 +27,41 @@ Phases (any failure stops the run with a non-zero exit and no result line):
    million real ratings; then the fused kernel on the movies side's buckets
    flattened into one step, which is step 0 of the movies side of a 1-shard
    ring (it holds the P = 131,072 class);
-5. requests: ``predict`` with ``return_std`` and ``top_k`` on the posterior,
-   checked against numpy;
-6. one more sweep under torch.profiler: device time by kernel, kernel
+   The run saves a checkpoint at sweep 2 (asynchronously; the block's
+   time excludes the save and its write);
+5. ``ml20m_checkpoint``: ``restore(step=2)`` on the same engine and sweeps
+   3-4 again, with the counters reset just before and read just after;
+   every ``SweepMetrics`` and both factor matrices must equal the first
+   pass bit for bit; the checkpoint's bytes on disk and the ms of the async
+   ``save``, of ``wait()`` and of ``restore``;
+6. requests: ``predict`` with ``return_std`` and ``top_k`` on the posterior,
+   checked against numpy; then ``serve``: the ML20M artifact exported and
+   loaded with ``PosteriorPredictor.load(..., device="cuda")`` answers bit
+   for bit as ``engine.predictor()``; ``BPMFServer`` on 127.0.0.1 takes 200
+   requests through ``ServeClient`` (half ``predict`` of 32 pairs with
+   std, half ``top_k(user, 10)``) from 1 and then 8 threads, every answer
+   bit for bit the in-process one, with req/s and p50/p99 latency per
+   kind; a second export is hot-swapped in by ``poll_artifact_now()``;
+7. one more sweep under torch.profiler: device time by kernel, kernel
    launches, and the device's busy share of a steady sweep;
-7. the ring at MovieLens-20M scale on the same ratings: ``ring`` with 4
+8. the ring at MovieLens-20M scale on the same ratings: ``ring`` with 4
    shards, all on this one card, through ``BPMFEngine``, 4 sweeps in blocks
    of 2 with the counters reset just before and read just after; each
-   sweep's RMSE held to the sequential phase's; then ``ring_async`` (depth
-   2) and ``allgather`` for 2 sweeps from the same start, held to the ring's
-   state; one traced ring sweep; and every (side, step, shard) layout of a
-   sweep held against the fused kernel's plain version and timed beside
-   ``torch.bmm`` on its pre-gathered chunks;
-8. the small seeded task of tests/test_posterior_quality.py on the card,
+   sweep's RMSE held to the sequential phase's, saving at sweep 2 as the
+   sequential run does; ``ring_checkpoint``, as ``ml20m_checkpoint`` (the
+   save holds the shards concatenated, ``[S * cap, K]``); then
+   ``ring_async`` (depth 2) and ``allgather`` for 2 sweeps from the same
+   start, held to the ring's state; one traced ring sweep; and every
+   (side, step, shard) layout of a sweep held against the fused kernel's
+   plain version and timed beside ``torch.bmm`` on its pre-gathered chunks;
+9. the small seeded task of tests/test_posterior_quality.py on the card,
    inside its recorded RMSE band;
-9. the ``yardsticks`` line: each kernel against ``torch.bmm`` where this
+10. the ``yardsticks`` line: each kernel against ``torch.bmm`` where this
    change is held to it (the heaviest-movie bucket, every bucket with at
    least 1 M real ratings, every movies-side ring layout) and the balance
    of the movies buckets' device time per real rating; these are measured
    and printed, not gates;
-10. the ``kernels`` JSON line, the card line again, and last the ``ok`` line.
+11. the ``kernels`` JSON line, the card line again, and last the ``ok`` line.
 
 Tolerance of a kernel against its plain version: the plain version
 contracts in float64 (the correctly rounded sum), the kernel sums float32
@@ -67,6 +82,8 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -84,6 +101,10 @@ RMSE_BAND = (0.70, 0.82)  # tests/test_posterior_quality.py's recorded band
 RING_SHARDS = 4
 ALPHA = 2.0  # the engine's default rating precision
 # tests/test_gram_fused.py's edge shapes: (Ns, K, cap, [(B, P, dead rows, all empty)])
+COUNTERS = ("LAUNCHES", "REDUCE_LAUNCHES", "PLAIN_CALLS", "FUSED_LAUNCHES", "FUSED_REDUCE_LAUNCHES",
+            "FUSED_PLAIN_CALLS")
+CHECKPOINT_AT = 2  # the sweep both ML20M runs save at, and resume from
+SERVE_REQUESTS = 200
 FUSED_SHAPES = {
     "multibucket": (96, 16, 64, [(16, 8, (), False), (9, 32, (), False), (4, 128, (), False)]),
     "B_not_multiple_of_tb": (64, 8, 24, [(13, 64, (), False)]),
@@ -367,12 +388,23 @@ def phase_fused_shapes(torch, np, gram_kernel, ops, Bucket) -> None:
     check_fused(torch, gram_kernel, X, step, 8, {"shape": "row over three pieces"}, full=True)
 
 
-def phase_ml20m(torch, gram_kernel, repro_torch_mods) -> dict:
+def timed_save(engine) -> dict:
+    """``engine.save()`` (asynchronous), then the wait for its write: the ms of each."""
+    t0 = time.perf_counter()
+    step = engine.save()
+    t1 = time.perf_counter()
+    engine._manager().wait()
+    t2 = time.perf_counter()
+    return {"step": step, "save_return_ms": 1e3 * (t1 - t0), "wait_ms": 1e3 * (t2 - t1)}
+
+
+def phase_ml20m(torch, gram_kernel, repro_torch_mods, ckpt_root: Path) -> dict:
     BPMFConfig, BPMFEngine, ML20M_LIKE, synthetic_ratings = repro_torch_mods
     t0 = time.perf_counter()
     coo, _ = synthetic_ratings(ML20M_LIKE)
     generate_s = time.perf_counter() - t0
-    cfg = BPMFConfig().replace(K=32, num_sweeps=4, burn_in=1, sweeps_per_block=2)
+    cfg = BPMFConfig().replace(K=32, num_sweeps=4, burn_in=1, sweeps_per_block=2,
+                               checkpoint_dir=str(ckpt_root / "ml20m"))
     engine = BPMFEngine(cfg)
     engine.prepare(coo)
     data = engine.backend.data
@@ -392,12 +424,15 @@ def phase_ml20m(torch, gram_kernel, repro_torch_mods) -> dict:
     gram_kernel.LAUNCHES = 0
     gram_kernel.REDUCE_LAUNCHES = 0
     gram_kernel.PLAIN_CALLS = 0
-    block_s = []
+    block_s, save = [], {}
     t_prev = time.perf_counter()
     for m in engine.sample():
         if m.sweep % cfg.run.sweeps_per_block == 0:
             now = time.perf_counter()  # the block's metrics were read: the device is done
             block_s.append(now - t_prev)
+            if m.sweep == CHECKPOINT_AT:
+                save = timed_save(engine)  # not charged to the next block
+                now = time.perf_counter()
             t_prev = now
     launches, plain_calls = gram_kernel.LAUNCHES, gram_kernel.PLAIN_CALLS
     reduce_launches = gram_kernel.REDUCE_LAUNCHES
@@ -471,7 +506,8 @@ def phase_ml20m(torch, gram_kernel, repro_torch_mods) -> dict:
     }
     print(json.dumps({k: v for k, v in per_sweep.items() if k != "buckets"}), flush=True)
     return {"engine": engine, "launches": launches, "reduce_launches": reduce_launches, "gram": per_sweep,
-            "coo": coo, "cfg": cfg,
+            "coo": coo, "cfg": cfg, "save": save,
+            "expected_per_sweep": {"LAUNCHES": n_buckets, "REDUCE_LAUNCHES": split_buckets},
             "steady_sweep_s": block_s[-1] / cfg.run.sweeps_per_block,
             "rmse_sample": [m.rmse_sample for m in engine.history]}
 
@@ -553,9 +589,9 @@ def phase_profile(torch, engine, steady_sweep_s: float, label: str = "profile_on
     }), flush=True)
 
 
-def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict) -> dict:
+def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict, ckpt_root: Path) -> dict:
     """The 4-shard ring at ML20M on this card, its async and allgather variants, and its kernel."""
-    cfg = ml["cfg"].replace(name="ring", num_shards=RING_SHARDS)
+    cfg = ml["cfg"].replace(name="ring", num_shards=RING_SHARDS, checkpoint_dir=str(ckpt_root / "ring"))
     engine = BPMFEngine(cfg)
     engine.prepare(ml["coo"])
     b = engine.backend
@@ -572,20 +608,21 @@ def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = ("LAUNCHES", "REDUCE_LAUNCHES", "PLAIN_CALLS", "FUSED_LAUNCHES", "FUSED_REDUCE_LAUNCHES",
-                "FUSED_PLAIN_CALLS")
-    for name in counters:
+    for name in COUNTERS:
         setattr(gram_kernel, name, 0)
-    block_s, after_block1 = [], None
+    block_s, after_block1, save = [], None, {}
     t_prev = time.perf_counter()
     for m in engine.sample():
         if m.sweep % cfg.run.sweeps_per_block == 0:
             now = time.perf_counter()
             block_s.append(now - t_prev)
-            t_prev = now
             if after_block1 is None:
                 after_block1 = engine.state
-    counts = {name: getattr(gram_kernel, name) for name in counters}
+            if m.sweep == CHECKPOINT_AT:
+                save = timed_save(engine)  # not charged to the next block
+                now = time.perf_counter()
+            t_prev = now
+    counts = {name: getattr(gram_kernel, name) for name in COUNTERS}
     peak = torch.cuda.max_memory_allocated()
     rmse = [m.rmse_sample for m in engine.history]
     gap = [abs(a - b_) for a, b_ in zip(rmse, ml["rmse_sample"])]
@@ -627,7 +664,8 @@ def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict) -> dict:
             raise AssertionError(f"{mode} differs from ring by {diff} after 2 sweeps")
         del st
     return {"engine": engine, "launches": counts["FUSED_LAUNCHES"],
-            "reduce_launches": counts["FUSED_REDUCE_LAUNCHES"],
+            "reduce_launches": counts["FUSED_REDUCE_LAUNCHES"], "save": save,
+            "expected_per_sweep": {"FUSED_LAUNCHES": expected_per_sweep, "FUSED_REDUCE_LAUNCHES": split_layouts},
             "steady_sweep_s": block_s[-1] / cfg.run.sweeps_per_block}
 
 
@@ -665,6 +703,188 @@ def phase_ring_layouts(torch, gram_kernel, engine) -> dict:
     print(json.dumps(per_sweep), flush=True)
     per_sweep["layouts"] = per_layout
     return per_sweep
+
+
+def phase_checkpoint(torch, np, gram_kernel, engine, run: dict, label: str, card: str) -> None:
+    """Restore the sweep-2 checkpoint into the same engine, run to sweep 4 again, and require the first pass's bits.
+
+    The counters are reset just before the resumed sweeps and read just
+    after: the kernels of the path must have run, and nothing else.
+    """
+    first = list(engine.history)
+    U0, V0 = engine.factors()
+    step_dir = Path(engine.cfg.run.checkpoint_dir) / f"step_{CHECKPOINT_AT:08d}"
+    files = sorted(step_dir.iterdir())
+    for name in COUNTERS:
+        setattr(gram_kernel, name, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = engine.restore(step=CHECKPOINT_AT)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    resumed = list(engine.sample())
+    t2 = time.perf_counter()
+    counts = {name: getattr(gram_kernel, name) for name in COUNTERS}
+    U1, V1 = engine.factors()
+    identical = {"metrics": engine.history == first and resumed == first[step:],
+                 "U": bool(np.array_equal(U0, U1)), "V": bool(np.array_equal(V0, V1))}
+    sweeps = engine.num_sweeps_done - step
+    expected = {name: n * sweeps for name, n in run["expected_per_sweep"].items()}
+    print(json.dumps({
+        "phase": label, "card": card, "step": step, "leaves": len(files) - 1,
+        "bytes_on_disk": sum(f.stat().st_size for f in files),
+        "state_U_shape": list(np.load(step_dir / "state__.U.npy", mmap_mode="r").shape),
+        "save_return_ms": run["save"]["save_return_ms"], "wait_ms": run["save"]["wait_ms"],
+        "restore_ms": 1e3 * (t1 - t0), "resumed_sweeps": sweeps, "resumed_seconds": t2 - t1,
+        "bit_identical": identical, "counts": counts, "expected_counts": expected,
+    }), flush=True)
+    if not all(identical.values()):
+        raise AssertionError(f"{label}: the resumed run differs from the first pass: {identical}")
+    if any(counts[name] != n for name, n in expected.items()):
+        raise AssertionError(f"{label}: kernel launches {counts}, want {expected}")
+    if counts["PLAIN_CALLS"] or counts["FUSED_PLAIN_CALLS"]:
+        raise AssertionError(f"{label}: the resumed sweeps ran a plain version: {counts}")
+
+
+def percentile_ms(seconds: list[float], q: float) -> float:
+    xs = sorted(seconds)
+    return 1e3 * xs[min(len(xs) - 1, int(math.ceil(q * len(xs))) - 1)]
+
+
+def drive_server(ServeClient, address: str, payloads: list, expected: list, threads: int) -> dict:
+    """Send ``payloads`` through ``threads`` clients (request i on thread ``i % threads``); check each answer."""
+    lock = threading.Lock()
+    latency = {"predict": [], "top_k": []}
+    errors, mismatched = [], []
+
+    def worker(t: int) -> None:
+        client = ServeClient(address)
+        try:
+            for i in range(t, len(payloads), threads):
+                t0 = time.perf_counter()
+                try:
+                    resp = client.request(payloads[i])
+                except ConnectionError as e:
+                    resp = {"error": f"{type(e).__name__}: {e}"}
+                dt = time.perf_counter() - t0
+                with lock:
+                    latency["predict" if "rows" in payloads[i] else "top_k"].append(dt)
+                    if "error" in resp:
+                        errors.append(resp["error"])
+                    elif resp != expected[i]:
+                        mismatched.append(i)
+        finally:
+            client.close()
+
+    pool = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
+    t0 = time.perf_counter()
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(th.is_alive() for th in pool):
+        raise AssertionError(f"a client thread of {threads} did not finish")
+    out = {"threads": threads, "requests": len(payloads), "seconds": wall, "req_per_s": len(payloads) / wall,
+           "errors": len(errors), "mismatched": len(mismatched)}
+    for kind, xs in latency.items():
+        out[kind] = {"n": len(xs), "p50_ms": percentile_ms(xs, 0.5), "p99_ms": percentile_ms(xs, 0.99)}
+    if errors or mismatched:
+        raise AssertionError(f"server answers with {threads} threads: errors {errors[:3]}, "
+                             f"{len(mismatched)} differ from the in-process answers")
+    return out
+
+
+def phase_sum_order(torch, np, served, card: str) -> None:
+    """What the fixed sum order costs, beside the plain products it replaces.
+
+    The plain forms (``U[users] @ V.T`` and ``(U[r] * V[c]).sum(-1)``) may
+    sum in another order at another batch size; count the rows of a batch
+    whose bits differ from the same queries one at a time, and time both
+    forms at batch sizes 1 and 8 (top-k scores) and 32 (pairs), by CUDA
+    events. The fixed order must differ in no row.
+    """
+    from repro_torch.serve.predictor import _catalog_scores, _dot_k
+
+    U, V, Vt, mean = served._U, served._V, served._Vt, served._mean
+    lo, hi = served.meta.min_rating, served.meta.max_rating
+    rng = np.random.default_rng(3)
+    users = torch.from_numpy(rng.integers(0, served.meta.num_users, 8)).cuda()
+    rows = torch.from_numpy(rng.integers(0, served.meta.num_users, 32)).cuda()
+    cols = torch.from_numpy(rng.integers(0, served.meta.num_movies, 32)).cuda()
+    forms = {
+        "top_k_fixed": lambda u: (_catalog_scores(U[u], Vt) + mean).clamp(lo, hi),
+        "top_k_plain": lambda u: (U[u] @ V.T + mean).clamp(lo, hi),
+        "predict_fixed": lambda r, c: (_dot_k(U[r], V[c]) + mean).clamp(lo, hi),
+        "predict_plain": lambda r, c: ((U[r] * V[c]).sum(-1) + mean).clamp(lo, hi),
+    }
+    line = {"phase": "serve_sum_order", "card": card}
+    for name, fn in forms.items():
+        args = (users,) if name.startswith("top_k") else (rows, cols)
+        batch = fn(*args)
+        alone = torch.cat([fn(*(a[i:i + 1] for a in args)) for i in range(args[0].shape[0])])
+        differ = (batch != alone).reshape(args[0].shape[0], -1).any(dim=1)
+        line[name] = {"rows_differing_from_alone": int(differ.sum()), "of": int(args[0].shape[0])}
+        for n in ((1, 8) if name.startswith("top_k") else (1, 32)):
+            line[name][f"ms_batch_{n}"] = time_ms(torch, lambda: fn(*(a[:n] for a in args)), 20)
+    print(json.dumps(line), flush=True)
+    if line["top_k_fixed"]["rows_differing_from_alone"] or line["predict_fixed"]["rows_differing_from_alone"]:
+        raise AssertionError(f"the fixed sum order changed bits with the batch: {line}")
+
+
+def phase_serve(torch, np, gram_kernel, engine, tmp: Path, card: str) -> None:
+    """Export, load on the card, and serve the ML20M posterior over HTTP; every answer the in-process one's bits."""
+    from repro_torch.serve import BPMFServer, PosteriorPredictor, ServeClient, parse_request, run_request
+
+    art = str(tmp / "ml20m_artifact")
+    t0 = time.perf_counter()
+    engine.export(art)
+    t1 = time.perf_counter()
+    served = PosteriorPredictor.load(art, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ours = engine.predictor()
+    meta = served.meta
+    rng = np.random.default_rng(2)
+    rows, cols = rng.integers(0, meta.num_users, 256), rng.integers(0, meta.num_movies, 256)
+    for a, b in zip(served.predict(rows, cols, return_std=True), ours.predict(rows, cols, return_std=True)):
+        if a.tobytes() != b.tobytes():
+            raise AssertionError("the loaded artifact's predict differs from engine.predictor()'s")
+    users = rng.integers(0, meta.num_users, 16)
+    for a, b in zip(served.top_k(users, 10), ours.top_k(users, 10)):
+        if a.tobytes() != b.tobytes():
+            raise AssertionError("the loaded artifact's top_k differs from engine.predictor()'s")
+    phase_sum_order(torch, np, served, card)
+
+    payloads = []
+    for i in range(SERVE_REQUESTS):
+        if i % 2 == 0:
+            payloads.append({"rows": rng.integers(0, meta.num_users, 32).tolist(),
+                             "cols": rng.integers(0, meta.num_movies, 32).tolist(), "std": True})
+        else:
+            payloads.append({"user": int(rng.integers(0, meta.num_users)), "k": 10})
+    expected = [run_request(ours, parse_request(p)) for p in payloads]
+    for name in COUNTERS:
+        setattr(gram_kernel, name, 0)
+    runs = []
+    with BPMFServer(art, host="127.0.0.1", port=0, watch=False) as srv:
+        host, port = srv.address
+        for threads in (1, 8):
+            runs.append(drive_server(ServeClient, f"{host}:{port}", payloads, expected, threads))
+        engine.export(art)  # a second export into the served directory
+        swapped = srv.poll_artifact_now()
+        generation = srv.generation
+        stats = srv.stats()["batcher"]
+    counts = {name: getattr(gram_kernel, name) for name in COUNTERS}
+    print(json.dumps({
+        "phase": "serve", "card": card, "export_ms": 1e3 * (t1 - t0), "load_ms": 1e3 * (t2 - t1),
+        "artifact_bytes": sum(f.stat().st_size for f in Path(art).rglob("*") if f.is_file()),
+        "num_kept_samples": meta.num_kept_samples, "runs": runs,
+        "batcher": {k: stats[k] for k in ("cycles", "requests", "coalesced_requests", "max_cycle_requests")},
+        "hot_swap": {"swapped": swapped, "generation": generation}, "counts": counts,
+    }), flush=True)
+    if not swapped or generation != 1:
+        raise AssertionError(f"the second export was not swapped in (generation {generation})")
 
 
 def phase_yardsticks(gram: dict, fused: dict) -> dict:
@@ -745,13 +965,18 @@ def main() -> int:
 
     phase_kernel_shapes(torch, gram_kernel)
     phase_fused_shapes(torch, np, gram_kernel, ops, Bucket)
-    ml = phase_ml20m(torch, gram_kernel, (BPMFConfig, BPMFEngine, ML20M_LIKE, synthetic_ratings))
-    phase_fused_one_shard(torch, gram_kernel, ops, ml["engine"])
-    phase_requests(torch, np, ml["engine"])
-    phase_profile(torch, ml["engine"], ml["steady_sweep_s"])
-    del ml["engine"]
-    torch.cuda.empty_cache()
-    ring = phase_ring(torch, gram_kernel, BPMFEngine, dist, ml)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp_name:
+        tmp = Path(tmp_name)
+        ml = phase_ml20m(torch, gram_kernel, (BPMFConfig, BPMFEngine, ML20M_LIKE, synthetic_ratings), tmp)
+        phase_checkpoint(torch, np, gram_kernel, ml["engine"], ml, "ml20m_checkpoint", card)
+        phase_fused_one_shard(torch, gram_kernel, ops, ml["engine"])
+        phase_requests(torch, np, ml["engine"])
+        phase_serve(torch, np, gram_kernel, ml["engine"], tmp, card)
+        phase_profile(torch, ml["engine"], ml["steady_sweep_s"])
+        del ml["engine"]
+        torch.cuda.empty_cache()
+        ring = phase_ring(torch, gram_kernel, BPMFEngine, dist, ml, tmp)
+        phase_checkpoint(torch, np, gram_kernel, ring["engine"], ring, "ring_checkpoint", card)
     phase_profile(torch, ring["engine"], ring["steady_sweep_s"], "profile_one_ring_sweep")
     fused = phase_ring_layouts(torch, gram_kernel, ring["engine"])
     del ring["engine"], ml["coo"]

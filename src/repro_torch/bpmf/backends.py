@@ -12,6 +12,12 @@ Registered here:
 Every backend draws the same posterior samples for the same ``(seed,
 data)``, up to float reduction order. ``posterior_merge`` is named here
 so that asking for it says which ROADMAP item brings it.
+
+Each backend also moves its state, prediction and posterior accumulators
+to and from *host trees*: nested dicts of numpy arrays with the JAX
+package's field names, layouts and dtypes (``int32`` counters), which the
+engine writes as checkpoint leaves. A ring's per-shard blocks travel
+concatenated in shard order, as the JAX package's ring-sharded arrays do.
 """
 from __future__ import annotations
 
@@ -23,7 +29,9 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import convert
 from repro_torch.bpmf.config import BPMFConfig
+from repro_torch.checkpoint import host_snapshot_leaf
 from repro_torch.core import distributed as dist
 from repro_torch.core import gibbs
 from repro_torch.core.prediction import PredictionState
@@ -71,14 +79,15 @@ def accum_host_tree(
     if count == 0:
         U_sum, V_sum = _EMPTY_SUM, _EMPTY_SUM
     else:
-        U_sum, V_sum = accum.U_sum.cpu().numpy(), accum.V_sum.cpu().numpy()
+        # host copies: the sums are updated in place by the next sweep
+        U_sum, V_sum = host_snapshot_leaf(accum.U_sum), host_snapshot_leaf(accum.V_sum)
         if u_order is not None:
             U_sum, V_sum = U_sum[u_order], V_sum[v_order]
     slots = _window_slots(count, accum.keep, accum.filled)
     if slots.size:
         idx = torch.from_numpy(slots).to(accum.U_window.device)
-        Us = accum.U_window[idx].cpu().numpy()
-        Vs = accum.V_window[idx].cpu().numpy()
+        Us = host_snapshot_leaf(accum.U_window[idx])
+        Vs = host_snapshot_leaf(accum.V_window[idx])
         if u_order is not None:
             Us, Vs = Us[:, u_order], Vs[:, v_order]
     else:
@@ -90,6 +99,65 @@ def accum_host_tree(
         "U_samples": Us,
         "V_samples": Vs,
     }
+
+
+def accum_from_host_tree(
+    tree: dict,
+    template: PosteriorAccum,
+    u_scatter: np.ndarray | None = None,
+    v_scatter: np.ndarray | None = None,
+) -> PosteriorAccum:
+    """Rebuild an accumulator (CPU tensors) from :func:`accum_host_tree` output.
+
+    Inverse of the host view: chronological sample stacks go back to their
+    rotating-buffer slots (``(count - S + j) % keep``), so a restore at any
+    sweep reproduces bit for bit the window an uninterrupted run holds.
+    A checkpoint written with a different ``keep`` restores its most recent
+    ``min(S, keep)`` samples.
+
+    Args:
+        tree: Host arrays in the checkpoint schema.
+        template: Accumulator in the backend's internal layout, for shapes
+            and ``keep`` only (``[M or S*cap, K]`` sums).
+        u_scatter / v_scatter: Original -> relabeled permutations
+            (``plan.part_*.perm``) mapping host rows into shard slots.
+            Pass both or neither.
+    """
+    if (u_scatter is None) != (v_scatter is None):
+        raise ValueError("accum_from_host_tree: pass both u_scatter and v_scatter, or neither")
+    count = int(np.asarray(tree["count"]))
+    keep = template.keep
+    shape_u, shape_v = tuple(template.U_sum.shape), tuple(template.V_sum.shape)
+
+    def to_internal(host, shape, scatter) -> np.ndarray:
+        out = np.zeros(shape, np.float32)
+        host = np.asarray(host, np.float32)
+        if scatter is None:
+            out[: host.shape[0]] = host
+        else:
+            out[scatter] = host
+        return out
+
+    U_sum = np.zeros(shape_u, np.float32)
+    V_sum = np.zeros(shape_v, np.float32)
+    if count:
+        U_sum = to_internal(tree["U_sum"], shape_u, u_scatter)
+        V_sum = to_internal(tree["V_sum"], shape_v, v_scatter)
+    Us = np.asarray(tree["U_samples"], np.float32)
+    Vs = np.asarray(tree["V_samples"], np.float32)
+    U_win = np.zeros((keep,) + shape_u, np.float32)
+    V_win = np.zeros((keep,) + shape_v, np.float32)
+    S = min(Us.shape[0], keep, count)
+    for j, slot in enumerate(_window_slots(count, keep, S)):
+        src = Us.shape[0] - S + j  # the stacks hold the last Us.shape[0] draws
+        U_win[slot] = to_internal(Us[src], shape_u, u_scatter)
+        V_win[slot] = to_internal(Vs[src], shape_v, v_scatter)
+    return PosteriorAccum(
+        U_sum=torch.from_numpy(U_sum), V_sum=torch.from_numpy(V_sum),
+        # only the S slots placed hold samples
+        count=count, filled=S,
+        U_window=torch.from_numpy(U_win), V_window=torch.from_numpy(V_win),
+    )
 
 
 def register_backend(name: str) -> Callable[[type["Backend"]], type["Backend"]]:
@@ -174,6 +242,30 @@ class Backend(abc.ABC):
         """Host view of the accumulator in original item order (see :func:`accum_host_tree`)."""
         return accum_host_tree(accum)
 
+    @abc.abstractmethod
+    def accum_from_host(self, tree: dict) -> PosteriorAccum:
+        """Rebuild the accumulator on the device from an :meth:`accum_host` tree."""
+
+    @abc.abstractmethod
+    def state_host(self, state) -> dict:
+        """Host tree of the Gibbs state: ``{"U", "V", "hyper_U": {"mu", "Lam"},
+        "hyper_V": {...}, "sweep"}``, factors in the JAX package's layout."""
+
+    @abc.abstractmethod
+    def state_from_host(self, tree: dict):
+        """The Gibbs state on the device from a :meth:`state_host` tree."""
+
+    def pred_host(self, pred: PredictionState) -> dict:
+        """Host tree of the prediction accumulator: ``{"sum_pred", "num_samples"}``."""
+        return {
+            "sum_pred": host_snapshot_leaf(pred.sum_pred),
+            "num_samples": np.asarray(pred.num_samples, np.int32),
+        }
+
+    def pred_from_host(self, tree: dict) -> PredictionState:
+        """The prediction accumulator on :attr:`home` from a :meth:`pred_host` tree."""
+        return convert.prediction_from_tree(tree).to(self.home)
+
     def posterior_export(self, accum: PosteriorAccum) -> dict:
         """Global posterior summary feeding the predictor.
 
@@ -199,9 +291,14 @@ class Backend(abc.ABC):
         """Whether ``prepare()`` has built this backend's data layout."""
         return self._prepared
 
+    @property
+    def home(self) -> torch.device:
+        """Where the hyper-parameters, test predictions and metrics live."""
+        return self.device
+
     def init_pred(self) -> PredictionState:
         """Zeroed posterior-mean prediction accumulator for the test set."""
-        return PredictionState.init(self.num_test, self.device)
+        return PredictionState.init(self.num_test, self.home)
 
     @property
     @abc.abstractmethod
@@ -255,10 +352,25 @@ class SequentialBackend(Backend):
 
     def init_accum(self) -> PosteriorAccum:
         """Zeroed accumulator on the backend's device."""
+        return self._accum_shaped(self.device)
+
+    def _accum_shaped(self, device) -> PosteriorAccum:
         return PosteriorAccum.init(
             self.data.num_users, self.data.num_movies,
-            self.core_cfg.K, self.cfg.run.keep_factor_samples, self.device,
+            self.core_cfg.K, self.cfg.run.keep_factor_samples, device,
         )
+
+    def accum_from_host(self, tree: dict) -> PosteriorAccum:
+        """The accumulator on the backend's device from a host tree."""
+        return accum_from_host_tree(tree, self._accum_shaped("meta")).to(self.device)
+
+    def state_host(self, state: BPMFState) -> dict:
+        """``U [M, K]``, ``V [N, K]``, hyper-parameters and the int32 sweep, on the host."""
+        return convert.to_tree(state)
+
+    def state_from_host(self, tree: dict) -> BPMFState:
+        """The state on the backend's device."""
+        return convert.state_from_tree(tree).to(self.device)
 
     @property
     def num_test(self) -> int:
@@ -339,10 +451,14 @@ class DistributedBackend(Backend):
         )
 
     def accum_host(self, accum) -> dict:
-        """Host view of the per-shard accumulators, in original item order."""
+        """Host view of the per-shard accumulators, in original item order.
+
+        The shards are joined on the home device, so only the retained
+        samples of the window cross to the host, not all ``keep`` slots.
+        """
 
         def cat(name: str, dim: int) -> torch.Tensor:
-            return torch.cat([getattr(a, name).cpu() for a in accum], dim=dim)
+            return torch.cat([getattr(a, name).to(self.home) for a in accum], dim=dim)
 
         whole = dataclasses.replace(
             accum[0], U_sum=cat("U_sum", 0), V_sum=cat("V_sum", 0),
@@ -352,9 +468,47 @@ class DistributedBackend(Backend):
             whole, u_order=self.plan.part_users.perm, v_order=self.plan.part_movies.perm
         )
 
-    def init_pred(self) -> PredictionState:
-        """Zeroed prediction accumulator on the ring's home device."""
-        return PredictionState.init(self.num_test, self.ring.home)
+    def accum_from_host(self, tree: dict) -> tuple[PosteriorAccum, ...]:
+        """Per-shard accumulators from a host tree: the rows go to their shard
+        slots, and block d of the ``[S * cap, K]`` layout to shard d's device."""
+        S, keep, K = self.num_shards, self.cfg.run.keep_factor_samples, self.core_cfg.K
+        cap_u, cap_v = self.data.users.cap, self.data.movies.cap
+        whole = accum_from_host_tree(
+            tree, PosteriorAccum.init(S * cap_u, S * cap_v, K, keep, "meta"),
+            u_scatter=self.plan.part_users.perm, v_scatter=self.plan.part_movies.perm,
+        )
+        return tuple(
+            dataclasses.replace(
+                whole,
+                U_sum=whole.U_sum[d * cap_u:(d + 1) * cap_u].to(dev),
+                V_sum=whole.V_sum[d * cap_v:(d + 1) * cap_v].to(dev),
+                U_window=whole.U_window[:, d * cap_u:(d + 1) * cap_u].to(dev),
+                V_window=whole.V_window[:, d * cap_v:(d + 1) * cap_v].to(dev),
+            )
+            for d, dev in enumerate(self.ring.devices)
+        )
+
+    def state_host(self, state: dist.DistState) -> dict:
+        """The shards' ``[cap, K]`` blocks concatenated in shard order (``[S * cap, K]``)."""
+        tree = convert.to_tree(state)
+        tree["U"], tree["V"] = np.concatenate(tree["U"]), np.concatenate(tree["V"])
+        return tree
+
+    def state_from_host(self, tree: dict) -> dist.DistState:
+        """Split into S blocks; block d goes to shard d's device, the hyper-parameters to :attr:`home`."""
+        host = convert.dist_state_from_tree(tree, self.num_shards)
+        devices = self.ring.devices
+        return dataclasses.replace(
+            host,
+            U=tuple(u.to(dev) for u, dev in zip(host.U, devices)),
+            V=tuple(v.to(dev) for v, dev in zip(host.V, devices)),
+            hyper_U=host.hyper_U.to(self.home), hyper_V=host.hyper_V.to(self.home),
+        )
+
+    @property
+    def home(self) -> torch.device:
+        """The ring's home device (shard 0's)."""
+        return self.ring.home
 
     @property
     def num_test(self) -> int:

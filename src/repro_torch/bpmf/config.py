@@ -8,8 +8,8 @@ and checks, so a configuration carries over:
   * :class:`BackendConfig` — execution: backend name, kernels, bucketing
 
 What this port does not run yet raises ``NotImplementedError`` naming the
-ROADMAP item that brings it: ``pipeline_blocks > 1`` here, checkpoint
-settings in the engine, and ``posterior_merge`` in the backend registry.
+ROADMAP item that brings it: ``pipeline_blocks > 1`` here, and
+``posterior_merge`` in the backend registry.
 """
 from __future__ import annotations
 
@@ -57,12 +57,15 @@ class RunConfig:
             metrics; samples are identical at every value.
         pipeline_blocks: Depth of the block dispatch queue; only 1 runs in
             this port (ROADMAP Queue 1 item 9 brings deeper queues).
-        async_checkpoint_writes: Kept for configuration parity; checkpoints
-            arrive with ROADMAP Queue 1 item 5.
+        async_checkpoint_writes: Write checkpoints on the manager's
+            background thread: ``save()`` takes host copies and returns
+            without waiting for the files. ``False`` saves synchronously.
         test_fraction: Held-out fraction for RMSE tracking.
-        checkpoint_dir: Where checkpoints would be written (not yet ported).
-        checkpoint_every: Sweeps between auto-saves; must stay 0 here.
-        keep_checkpoints: Retention window of checkpoints.
+        checkpoint_dir: Where :meth:`BPMFEngine.save` writes; ``None``
+            disables checkpointing.
+        checkpoint_every: Sweeps between auto-saves; 0 = explicit
+            ``save()`` only. Blocks shrink to land on these boundaries.
+        keep_checkpoints: Retention window (older steps are pruned).
         keep_factor_samples: Most recent post-burn-in ``(U, V)`` samples
             kept for the predictive std; 0 keeps only the running mean.
     """
@@ -91,6 +94,14 @@ class RunConfig:
         if self.pipeline_blocks < 1:
             raise ValueError(
                 f"RunConfig.pipeline_blocks must be >= 1, got {self.pipeline_blocks}"
+            )
+        if self.checkpoint_every < 0:
+            raise ValueError(
+                f"RunConfig.checkpoint_every must be >= 0, got {self.checkpoint_every}"
+            )
+        if self.keep_checkpoints < 0:
+            raise ValueError(
+                f"RunConfig.keep_checkpoints must be >= 0, got {self.keep_checkpoints}"
             )
         if self.pipeline_blocks > 1:
             raise NotImplementedError(

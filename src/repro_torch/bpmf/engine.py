@@ -1,4 +1,4 @@
-"""``BPMFEngine`` — fit, sample and predict through one object::
+"""``BPMFEngine`` — fit, sample, predict, save, restore and export through one object::
 
     from repro_torch.bpmf import BPMFConfig, BPMFEngine, load_dataset
 
@@ -12,9 +12,17 @@ goes through the hand-written CUDA kernel.
 
 The sampler key derives from ``RunConfig.seed`` and per-sweep keys from
 ``(key, sweep)``, exactly as in the JAX package, so the same seed draws the
-same normals in both. Sweeps run in blocks of ``RunConfig.sweeps_per_block``
-with one host read of the block's metrics. ``save`` / ``restore`` /
-``export`` come with the checkpoint slice (ROADMAP Queue 1 items 5 and 6).
+same normals in both, and a run restored from a checkpoint continues with
+the randomness of an uninterrupted one. Sweeps run in blocks of
+``RunConfig.sweeps_per_block`` with one host read of the block's metrics;
+blocks shrink to land on ``checkpoint_every`` boundaries, where the engine
+saves.
+
+Checkpoints and serving artifacts are the JAX package's files, leaf for
+leaf: a checkpoint either package writes restores in the other, and so
+does an artifact. This port runs one block at a time (no
+``pipeline_blocks`` queue: ROADMAP Queue 1 item 9), so no block is ever in
+flight when ``save``, ``restore`` or ``export`` runs.
 """
 from __future__ import annotations
 
@@ -25,18 +33,62 @@ import torch
 
 from repro_torch.bpmf.backends import Backend, get_backend
 from repro_torch.bpmf.config import BPMFConfig
+from repro_torch.checkpoint import CheckpointManager, CheckpointSchemaError
 from repro_torch.core import prng
 from repro_torch.core.gibbs import SweepMetrics
 from repro_torch.data.sparse import RatingsCOO
-from repro_torch.serve.artifact import ArtifactMeta
+from repro_torch.serve.artifact import ArtifactMeta, save_artifact
 from repro_torch.serve.predictor import PosteriorPredictor
 from repro_torch.utils import resolve_device
 
-_CHECKPOINT_ITEM = "ROADMAP Queue 1 items 5 and 6 (checkpoints, export and serving)"
+# The leaves of an engine checkpoint and their places in the engine's host
+# tree, in the JAX package's manifest order. Its names come from JAX tree
+# paths joined by "__": a dict key gives the bare key, a dataclass field
+# ".<field>"; its order is the tree's (dict keys sorted, fields as declared).
+_CHECKPOINT_LEAVES = (
+    ("history", ("history",)),
+    ("posterior__U_samples", ("posterior", "U_samples")),
+    ("posterior__U_sum", ("posterior", "U_sum")),
+    ("posterior__V_samples", ("posterior", "V_samples")),
+    ("posterior__V_sum", ("posterior", "V_sum")),
+    ("posterior__count", ("posterior", "count")),
+    ("pred__.sum_pred", ("pred", "sum_pred")),
+    ("pred__.num_samples", ("pred", "num_samples")),
+    ("state__.U", ("state", "U")),
+    ("state__.V", ("state", "V")),
+    ("state__.hyper_U__.mu", ("state", "hyper_U", "mu")),
+    ("state__.hyper_U__.Lam", ("state", "hyper_U", "Lam")),
+    ("state__.hyper_V__.mu", ("state", "hyper_V", "mu")),
+    ("state__.hyper_V__.Lam", ("state", "hyper_V", "Lam")),
+    ("state__.sweep", ("state", "sweep")),
+)
+
+
+def _flatten(tree: dict) -> dict[str, np.ndarray]:
+    """The checkpoint leaves of a host tree, in manifest order."""
+    out = {}
+    for name, path in _CHECKPOINT_LEAVES:
+        node = tree
+        for part in path:
+            node = node[part]
+        out[name] = node
+    return out
+
+
+def _unflatten(leaves: dict[str, np.ndarray]) -> dict:
+    """The host tree of the leaves read (those of a subset of the table)."""
+    tree: dict = {}
+    for name, path in _CHECKPOINT_LEAVES:
+        if name in leaves:
+            node = tree
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = leaves[name]
+    return tree
 
 
 class BPMFEngine:
-    """Fit / sample / predict over a pluggable backend, on one device."""
+    """Fit / sample / predict / save / restore / export over a pluggable backend."""
 
     def __init__(self, cfg: BPMFConfig | None = None, device: str | torch.device | None = None):
         """Build an engine (and its backend) from a config.
@@ -48,12 +100,9 @@ class BPMFEngine:
 
         Raises:
             RuntimeError: No CUDA device and no CPU request.
-            NotImplementedError: A checkpoint setting or a backend this port
-                does not have yet.
+            NotImplementedError: A backend this port does not have yet.
         """
         self.cfg = cfg or BPMFConfig()
-        if self.cfg.run.checkpoint_dir or self.cfg.run.checkpoint_every:
-            raise NotImplementedError(f"checkpointing is not ported yet: {_CHECKPOINT_ITEM}")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the hyper-parameter statistics X.T @ X are plain float32
@@ -66,6 +115,7 @@ class BPMFEngine:
         self._accum = None
         self._sweeps_done = 0
         self._data_fingerprint: tuple[int, int, int] | None = None
+        self._ckpt: CheckpointManager | None = None
         self._predictor: PosteriorPredictor | None = None
         self._predictor_sweep = -1
         keys = prng.split(prng.key(self.cfg.run.seed, self.device))
@@ -99,11 +149,36 @@ class BPMFEngine:
             self._accum = self.backend.init_accum()
             self._sweeps_done = 0
 
+    def _manager(self) -> CheckpointManager:
+        if self._ckpt is None:
+            if not self.cfg.run.checkpoint_dir:
+                raise ValueError("RunConfig.checkpoint_dir is not set")
+            self._ckpt = CheckpointManager(
+                self.cfg.run.checkpoint_dir,
+                keep=self.cfg.run.keep_checkpoints,
+                async_writes=self.cfg.run.async_checkpoint_writes,
+            )
+        return self._ckpt
+
+    def _next_block_len(self) -> int:
+        """Sweeps in the next block: ``sweeps_per_block``, shrunk so blocks
+        land exactly on ``checkpoint_every`` boundaries and the final sweep
+        (the partition never changes the samples)."""
+        run = self.cfg.run
+        n = min(run.sweeps_per_block, run.num_sweeps - self._sweeps_done)
+        if run.checkpoint_every:
+            n = min(n, run.checkpoint_every - self._sweeps_done % run.checkpoint_every)
+        return max(n, 1)
+
     def sample(self, data: RatingsCOO | None = None) -> Iterator[SweepMetrics]:
         """Stream per-sweep metrics from the current sweep to ``num_sweeps``.
 
+        Resumable: after ``restore()`` the iterator continues where the
+        checkpoint left off, drawing the randomness of an uninterrupted run.
         Sweeps run in blocks of ``RunConfig.sweeps_per_block``; a block's
-        metrics are read from the device once, after the block.
+        metrics are read from the device once, after the block. At each
+        ``checkpoint_every`` boundary the engine saves before yielding the
+        block's metrics.
 
         Yields:
             One :class:`SweepMetrics` (sample / posterior-mean RMSE, sweep
@@ -112,20 +187,35 @@ class BPMFEngine:
         if data is not None:
             self.prepare(data)
         self._ensure_state()
-        run = self.cfg.run
-        while self._sweeps_done < run.num_sweeps:
-            n = min(run.sweeps_per_block, run.num_sweeps - self._sweeps_done)
+        every = self.cfg.run.checkpoint_every
+        while self._sweeps_done < self.cfg.run.num_sweeps:
+            n = self._next_block_len()
             self._state, self._pred, self._accum, rows = self.backend.sweep_block(
                 self._k_run, self._state, self._pred, self._accum, n
             )
             self._sweeps_done += n
             block = [SweepMetrics(*map(float, r)) for r in rows.cpu().numpy()]
             self.history.extend(block)
+            if every and self._sweeps_done % every == 0:
+                self.save()
             yield from block
 
-    def fit(self, data: RatingsCOO | None = None) -> "BPMFEngine":
-        """Run (or finish) all sweeps; returns ``self``."""
-        for _ in self.sample(data):
+    def fit(self, data: RatingsCOO | None = None, resume: bool = False) -> "BPMFEngine":
+        """Run (or finish) all sweeps.
+
+        Args:
+            data: Ratings to ``prepare()`` first, if not already prepared.
+            resume: Restore the latest checkpoint from
+                ``RunConfig.checkpoint_dir`` (if any) before continuing.
+
+        Returns:
+            ``self``, with ``history`` / ``rmse`` / ``factors()`` populated.
+        """
+        if data is not None:
+            self.prepare(data)
+        if resume and self.cfg.run.checkpoint_dir and self._manager().latest() is not None:
+            self.restore()
+        for _ in self.sample():
             pass
         return self
 
@@ -138,7 +228,7 @@ class BPMFEngine:
 
     @property
     def num_sweeps_done(self) -> int:
-        """Sweeps run so far."""
+        """Sweeps run so far (``restore()`` positions this at the checkpoint step)."""
         return self._sweeps_done
 
     @property
@@ -201,14 +291,103 @@ class BPMFEngine:
         )
         return meta, {"U_mean": U_mean, "V_mean": V_mean, "U_samples": Us, "V_samples": Vs}
 
+    def export(self, directory: str) -> str:
+        """Write the versioned serving artifact of the current posterior.
+
+        The JAX package's artifact (schema version 1): posterior-mean
+        factors, the retained per-sweep samples, the mean rating, the clip
+        range and the run's metadata, for
+        :meth:`repro_torch.serve.PosteriorPredictor.load` or either
+        package's serving CLIs to load without re-running MCMC. Checkpoint
+        writes still pending on the async writer commit first.
+
+        Args:
+            directory: Artifact directory (replaced if it already holds one).
+
+        Returns:
+            The artifact directory.
+        """
+        if self._ckpt is not None:
+            self._ckpt.wait()
+        meta, arrays = self._artifact_payload()
+        return save_artifact(directory, meta, arrays)
+
     def save(self, step: int | None = None) -> int:
-        """Not ported yet (ROADMAP Queue 1 item 5)."""
-        raise NotImplementedError(f"save is not ported yet: {_CHECKPOINT_ITEM}")
+        """Checkpoint the state, the prediction accumulator, the posterior and the metric history.
+
+        Host copies of every leaf are taken before this returns (a CUDA
+        tensor is copied on its device's current stream); with
+        ``RunConfig.async_checkpoint_writes`` (the default) the files are
+        written on the manager's background thread. The commit is atomic
+        (tmp-dir rename, then ``LATEST`` replaced), so a crash mid-write
+        never leaves a torn checkpoint visible. The file set, names, shapes
+        and dtypes are the JAX package's; a ring saves its factor shards
+        concatenated in shard order (``[S * cap, K]``).
+
+        Args:
+            step: Step to label the checkpoint with (default: the current sweep).
+
+        Returns:
+            The step the checkpoint was written at.
+        """
+        self._ensure_state()
+        step = self._sweeps_done if step is None else step
+        hist = np.asarray(
+            [[m.rmse_sample, m.rmse_avg, m.sweep] for m in self.history[:step]], np.float32
+        ).reshape(-1, 3)
+        tree = {
+            "state": self.backend.state_host(self._state),
+            "pred": self.backend.pred_host(self._pred),
+            "history": hist,
+            "posterior": self.backend.accum_host(self._accum),
+        }
+        self._manager().save(step, _flatten(tree))
+        return step
 
     def restore(self, data: RatingsCOO | None = None, step: int | None = None) -> int:
-        """Not ported yet (ROADMAP Queue 1 item 5)."""
-        raise NotImplementedError(f"restore is not ported yet: {_CHECKPOINT_ITEM}")
+        """Load a checkpoint and position the run loop at its sweep count.
 
-    def export(self, directory: str) -> str:
-        """Not ported yet (ROADMAP Queue 1 item 6)."""
-        raise NotImplementedError(f"export is not ported yet: {_CHECKPOINT_ITEM}")
+        The backend must be prepared (pass ``data`` here or call
+        ``prepare`` first). Metric history up to the checkpointed sweep is
+        restored too, so ``rmse`` and ``history`` are complete even in a
+        fresh process. A checkpoint without a ``posterior`` subtree (written
+        before the JAX package's serving subsystem) still restores; the
+        posterior accumulator then starts empty, so a later ``export()``
+        reflects only the sweeps run after the resume.
+
+        Args:
+            data: Ratings to ``prepare()`` first, if not already prepared.
+            step: Checkpoint step to load (default: latest).
+
+        Returns:
+            The restored sweep count.
+
+        Raises:
+            FileNotFoundError: No checkpoint at ``step`` (or none at all).
+            CheckpointError: A damaged checkpoint, or one without the state.
+        """
+        if data is not None:
+            self.prepare(data)
+        if not self.backend.prepared:
+            raise RuntimeError("no data: call restore(data) or prepare(data) first")
+        mgr = self._manager()
+        step = mgr.latest() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {self.cfg.run.checkpoint_dir}")
+        names = [name for name, _ in _CHECKPOINT_LEAVES]
+        try:
+            tree = _unflatten(mgr.restore(names, step=step))
+            accum = self.backend.accum_from_host(tree["posterior"])
+        except CheckpointSchemaError:
+            # no posterior subtree: restore the rest, start the accumulator
+            # empty (a genuinely damaged checkpoint raises from this restore)
+            rest = [name for name, path in _CHECKPOINT_LEAVES if path[0] != "posterior"]
+            tree = _unflatten(mgr.restore(rest, step=step))
+            accum = self.backend.init_accum()
+        self._state = self.backend.state_from_host(tree["state"])
+        self._pred = self.backend.pred_from_host(tree["pred"])
+        self._accum = accum
+        self._predictor, self._predictor_sweep = None, -1
+        self._sweeps_done = step
+        self.history = [SweepMetrics(float(r[0]), float(r[1]), float(r[2])) for r in tree["history"]]
+        return step

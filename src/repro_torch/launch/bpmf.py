@@ -3,11 +3,19 @@
     PYTHONPATH=src python -m repro_torch.launch.bpmf --dataset synthetic --sweeps 20
     PYTHONPATH=src python -m repro_torch.launch.bpmf --device cpu --K 8 --sweeps 5
     PYTHONPATH=src python -m repro_torch.launch.bpmf --device cpu --backend ring --num-shards 2
+    PYTHONPATH=src python -m repro_torch.launch.bpmf --device cpu --checkpoint-dir /tmp/ck --checkpoint-every 2
+    PYTHONPATH=src python -m repro_torch.launch.bpmf --device cpu --checkpoint-dir /tmp/ck --resume \
+        --export-artifact /tmp/art
 
-Prints per-sweep sample and posterior-mean RMSE. Runs on the GPU unless
-``--device cpu`` is given, and exits with an error when there is no GPU
-and no CPU request. The flags are those of ``python -m repro.launch.bpmf``
-that this port runs, with the same names and defaults, plus ``--device``.
+Prints per-sweep sample and posterior-mean RMSE. ``--resume`` continues
+from the latest checkpoint in ``--checkpoint-dir`` with randomness
+identical to an uninterrupted run; ``--export-artifact`` writes the
+serving artifact after the run (``python -m repro_torch.launch.serve``).
+Checkpoints and artifacts are the JAX package's files, so either package
+resumes or serves what the other wrote. Runs on the GPU unless ``--device
+cpu`` is given, and exits with an error when there is no GPU and no CPU
+request. The flags are those of ``python -m repro.launch.bpmf`` that this
+port runs, with the same names and defaults, plus ``--device``.
 The ring backends put shard d on card ``d % n`` of the n visible cards, so
 ``--num-shards 4`` on one card runs all four shards there.
 """
@@ -44,6 +52,17 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "pallas_fused", "pallas", "xla"],
                    help="Gram dispatch: auto/pallas/pallas_fused = the CUDA kernel "
                         "(plain version on CPU); xla = plain version, CPU only")
+    p.add_argument("--export-artifact", default=None,
+                   help="after the run, write the posterior serving artifact here "
+                        "(consumed by python -m repro_torch.launch.serve)")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="sweeps between auto-saves (0 = none)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the latest checkpoint in --checkpoint-dir")
+    p.add_argument("--sync-checkpoint-writes", action="store_true",
+                   help="commit checkpoints synchronously instead of on the "
+                        "background writer thread")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to run (default cuda; cpu only when asked)")
     return p
@@ -69,9 +88,16 @@ def main(argv: list[str] | None = None) -> int:
         sweeps_per_block=args.sweeps_per_block,
         burn_in=args.burn_in,
         seed=args.seed,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        async_checkpoint_writes=not args.sync_checkpoint_writes,
     )
     engine = BPMFEngine(cfg, device=args.device)
     engine.prepare(coo)
+    resumed_at = 0
+    if args.resume:
+        resumed_at = engine.restore()
+        print(f"resumed from checkpoint at sweep {resumed_at}")
     shards = f" shards={engine.backend.num_shards}" if hasattr(engine.backend, "num_shards") else ""
     print(
         f"backend={args.backend}{shards} device={engine.device} dataset={args.dataset} "
@@ -83,11 +109,15 @@ def main(argv: list[str] | None = None) -> int:
         print(f"  sweep {int(m.sweep):4d}  rmse(sample)={m.rmse_sample:.4f}  "
               f"rmse(avg)={m.rmse_avg:.4f}")
     dt = time.time() - t0
-    updates = (coo.num_users + coo.num_movies) * engine.num_sweeps_done
+    swept = engine.num_sweeps_done - resumed_at  # only what this process ran
+    updates = (coo.num_users + coo.num_movies) * swept
     print(
         f"final rmse(avg)={engine.rmse:.4f} after {engine.num_sweeps_done} sweeps "
-        f"in {dt:.2f}s ({updates / max(dt, 1e-9):,.0f} item updates/s)"
+        f"({swept} this run) in {dt:.2f}s ({updates / max(dt, 1e-9):,.0f} item updates/s)"
     )
+    if args.export_artifact:
+        path = engine.export(args.export_artifact)
+        print(f"exported serving artifact to {path}")
     return 0
 
 

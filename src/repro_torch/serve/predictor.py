@@ -1,7 +1,7 @@
 """``PosteriorPredictor`` — posterior-mean serving on one device.
 
-Answers rating queries from an engine's posterior summary without touching
-the sampler:
+Loads an exported artifact (or an engine's in-memory posterior) and answers
+rating queries without touching the sampler:
 
 * :meth:`PosteriorPredictor.predict` — batched ``(user, movie)`` point
   predictions from the posterior-mean factors, optionally with the
@@ -9,8 +9,18 @@ the sampler:
 * :meth:`PosteriorPredictor.top_k` — per-user catalog scoring + top-k.
 
 The factors are small next to query traffic, so they sit whole on one
-device. Ties in ``top_k`` are ordered by (score descending, item id
-ascending), the rule ``repro.serve.sharded_topk.merge_topk`` documents;
+device, and ``top_k`` scans the whole catalog there (the JAX package's
+replicated mode; its item-sharded mode needs several cards, ROADMAP Queue
+1 item 9).
+
+Every score is summed over K in one fixed order, ``k = 0, 1, ..., K - 1``,
+by one elementwise product and one add per ``k``, and the predictive std
+over the samples likewise. An elementwise kernel treats each entry alike
+whatever the tensor's size, whereas a matrix product or a reduction kernel
+may pick another algorithm, and so another sum order, for another batch
+size. So an answer has the same bits whether its request runs alone or
+coalesced with others (the server's micro-batches). Ties in ``top_k`` go
+to the lower item id, the rule of :func:`repro_torch.serve.sharded_topk.merge_topk`;
 ``torch.topk`` promises no order among ties, so the scores go through a
 stable descending sort instead.
 """
@@ -19,34 +29,119 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.serve.artifact import ArtifactMeta
+from repro_torch.serve.artifact import ArtifactMeta, load_artifact
+from repro_torch.utils import resolve_device
+
+_TOPK_MODES = ("auto", "replicated", "sharded")
+_SHARDED_ITEM = (
+    "item-sharded top-k spans several cards and is not ported yet "
+    "(ROADMAP Queue 1 item 9); one card answers from the replicated scan"
+)
+
+
+def _dot_k(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``sum_k a[..., k] * b[..., k]`` (broadcasting), in the fixed order k = 0, 1, ..."""
+    acc = a[..., 0] * b[..., 0]
+    for k in range(1, a.shape[-1]):
+        acc = acc + a[..., k] * b[..., k]
+    return acc
+
+
+def _catalog_scores(u: torch.Tensor, Vt: torch.Tensor) -> torch.Tensor:
+    """``[B, N]`` dot products of the users ``u [B, K]`` with every item of ``Vt [K, N]``, as :func:`_dot_k` sums."""
+    acc = u[:, 0:1] * Vt[0]
+    for k in range(1, u.shape[-1]):
+        acc = acc + u[:, k:k + 1] * Vt[k]
+    return acc
+
+
+def _std0(x: torch.Tensor) -> torch.Tensor:
+    """Population std over dim 0, summed in the order s = 0, 1, ..."""
+    n = x.shape[0]
+    mean = x[0]
+    for s in range(1, n):
+        mean = mean + x[s]
+    mean = mean / n
+    var = (x[0] - mean) ** 2
+    for s in range(1, n):
+        var = var + (x[s] - mean) ** 2
+    return torch.sqrt(var / n)
 
 
 class PosteriorPredictor:
-    """Answer rating queries from a BPMF posterior summary."""
+    """Answer rating queries from a BPMF posterior summary.
 
-    def __init__(self, meta: ArtifactMeta, arrays: dict[str, np.ndarray], device: torch.device | str):
+    Construction paths: :meth:`load` (from an artifact on disk, the serving
+    process) and :meth:`from_engine` (from a live engine's posterior, no
+    disk round trip; what ``BPMFEngine.predict`` delegates to).
+    """
+
+    def __init__(
+        self,
+        meta: ArtifactMeta,
+        arrays: dict[str, np.ndarray],
+        device: torch.device | str | None = None,
+        topk_mode: str = "auto",
+    ):
         """Place the posterior summary on ``device``.
 
         Args:
             meta: Shapes, clip range and mean rating.
             arrays: ``U_mean``/``V_mean``/``U_samples``/``V_samples`` host
                 arrays in the shapes ``meta`` promises.
-            device: Where the factors live and queries are scored.
+            device: ``None`` or ``"cuda"`` serves from the GPU; ``"cpu"``
+                from the CPU.
+            topk_mode: ``"auto"`` or ``"replicated"``: the catalog scan on
+                this device. ``"sharded"`` (the JAX package's item-sharded
+                scan across devices) raises.
+
+        Raises:
+            ValueError: An unknown ``topk_mode``.
+            NotImplementedError: ``topk_mode="sharded"``.
+            RuntimeError: No CUDA device and no CPU request.
         """
+        if topk_mode not in _TOPK_MODES:
+            raise ValueError(f"topk_mode must be auto|replicated|sharded, got {topk_mode!r}")
+        if topk_mode == "sharded":
+            raise NotImplementedError(_SHARDED_ITEM)
         self.meta = meta
-        self.device = torch.device(device)
+        self.topk_mode = topk_mode
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # float32 products throughout, in a serving process too
+            torch.backends.cuda.matmul.allow_tf32 = False
 
         def put(name: str) -> torch.Tensor:
             return torch.from_numpy(np.asarray(arrays[name], np.float32)).to(self.device)
 
         self._U, self._V = put("U_mean"), put("V_mean")
+        self._Vt = self._V.T.contiguous()  # [K, N]: row k is contiguous for the catalog scan
         self._Us, self._Vs = put("U_samples"), put("V_samples")
         self._mean = torch.tensor(meta.mean_rating, dtype=torch.float32, device=self.device)
 
     @classmethod
+    def load(
+        cls, directory: str, device: torch.device | str | None = None, topk_mode: str = "auto"
+    ) -> "PosteriorPredictor":
+        """Load a predictor from an artifact directory (either package's export).
+
+        Args:
+            directory: Artifact directory.
+            device: ``None`` or ``"cuda"`` for the GPU, ``"cpu"`` for the CPU.
+            topk_mode: See :meth:`__init__`.
+
+        Raises:
+            ArtifactError: Typed load failure (:mod:`repro_torch.serve.artifact`).
+        """
+        meta, arrays = load_artifact(directory)
+        return cls(meta, arrays, device, topk_mode=topk_mode)
+
+    @classmethod
     def from_engine(cls, engine) -> "PosteriorPredictor":
-        """A predictor over a live engine's current posterior summary, on its device."""
+        """A predictor over a live engine's current posterior summary, on its device.
+
+        Bit for bit what a save and :meth:`load` of the engine's export gives.
+        """
         meta, arrays = engine._artifact_payload()
         return cls(meta, arrays, engine.device)
 
@@ -66,6 +161,12 @@ class PosteriorPredictor:
     def predict(self, rows, cols, return_std: bool = False):
         """Batched point predictions for ``(user, movie)`` pairs.
 
+        Args:
+            rows: ``[B]`` user ids (original numbering).
+            cols: ``[B]`` movie ids (original numbering).
+            return_std: Also return the predictive std over the retained
+                factor samples.
+
         Returns:
             ``[B]`` float32 predictions clipped to the training range, or
             ``(preds, std)`` when ``return_std``.
@@ -80,19 +181,25 @@ class PosteriorPredictor:
             raise ValueError(f"rows/cols batch mismatch: {tuple(r.shape)} vs {tuple(c.shape)}")
         if return_std and self.num_kept_samples == 0:
             raise ValueError(
-                "predictive std needs retained factor samples; this posterior has "
-                "num_kept_samples=0 (RunConfig.keep_factor_samples)"
+                "predictive std needs retained factor samples; this artifact was exported "
+                "with num_kept_samples=0 (RunConfig.keep_factor_samples)"
             )
         lo, hi = self.meta.min_rating, self.meta.max_rating
-        preds = ((self._U[r] * self._V[c]).sum(-1) + self._mean).clamp(lo, hi)
+        preds = (_dot_k(self._U[r], self._V[c]) + self._mean).clamp(lo, hi)
         if not return_std:
             return preds.cpu().numpy()
-        per_sample = torch.einsum("sbk,sbk->sb", self._Us[:, r], self._Vs[:, c]) + self._mean
-        std = per_sample.clamp(lo, hi).std(dim=0, correction=0)
-        return preds.cpu().numpy(), std.cpu().numpy()
+        per_sample = (_dot_k(self._Us[:, r], self._Vs[:, c]) + self._mean).clamp(lo, hi)
+        return preds.cpu().numpy(), _std0(per_sample).cpu().numpy()
 
-    def top_k(self, user, k: int):
+    def top_k(self, user, k: int, sharded: bool | None = None):
         """Highest-scoring movies for one user (or a batch of users).
+
+        Args:
+            user: A user id, or a ``[B]`` array of user ids.
+            k: Number of movies to return (clamped to the catalog size).
+            sharded: ``None`` or ``False``: the catalog scan on this
+                device. ``True`` (the item-sharded scan across devices)
+                raises.
 
         Returns:
             ``(ids, scores)`` — ``[k]`` arrays for a scalar ``user``, ``[B, k]``
@@ -101,15 +208,52 @@ class PosteriorPredictor:
 
         Raises:
             ValueError: Out-of-range user ids or ``k < 1``.
+            NotImplementedError: ``sharded=True``.
         """
+        if sharded:
+            raise NotImplementedError(_SHARDED_ITEM)
         if k < 1:
             raise ValueError(f"top_k needs k >= 1, got {k}")
         k = min(int(k), self.meta.num_movies)
         scalar = np.ndim(user) == 0
         users = self._queries(np.atleast_1d(np.asarray(user)), self.meta.num_users, "user")
         lo, hi = self.meta.min_rating, self.meta.max_rating
-        scores = (self._U[users] @ self._V.T + self._mean).clamp(lo, hi)
+        scores = (_catalog_scores(self._U[users], self._Vt) + self._mean).clamp(lo, hi)
         vals, ids = torch.sort(scores, dim=-1, descending=True, stable=True)
         ids = ids[:, :k].to(torch.int32).cpu().numpy()
         vals = vals[:, :k].cpu().numpy()
         return (ids[0], vals[0]) if scalar else (ids, vals)
+
+
+class PredictorHandle:
+    """Atomically swappable reference to the live :class:`PosteriorPredictor`.
+
+    The server's hot-swap primitive: request handlers read the current
+    predictor once per coalesced batch, and :meth:`swap` replaces it with
+    one reference assignment (atomic under the interpreter lock), so every
+    batch runs against one posterior and no request sees a half-loaded
+    artifact (the new predictor is built before the swap).
+    """
+
+    def __init__(self, predictor: PosteriorPredictor):
+        """Wrap the initial predictor at generation 0."""
+        self._current: tuple[PosteriorPredictor, int] = (predictor, 0)
+
+    @property
+    def generation(self) -> int:
+        """Completed swaps (0 = the artifact the server started with)."""
+        return self._current[1]
+
+    def get(self) -> PosteriorPredictor:
+        """The live predictor (one atomic read: call once per batch)."""
+        return self._current[0]
+
+    def get_with_generation(self) -> tuple[PosteriorPredictor, int]:
+        """Consistent ``(predictor, generation)`` pair in one atomic read."""
+        return self._current
+
+    def swap(self, predictor: PosteriorPredictor) -> int:
+        """Atomically publish a new, fully built predictor; returns the new generation."""
+        gen = self._current[1] + 1
+        self._current = (predictor, gen)
+        return gen

@@ -20,14 +20,24 @@ where the pieces turn: a bucket item with nnz = W - 1, W, W + 1 and P, one
 item with all P = 131,072 ratings, a fused row whose chunks, not adjacent,
 span three pieces, at K in {1, 31, 32, 33, 128}, in float32 and bfloat16,
 from a starting G that is not symmetric, with alpha = 2.
+
+The checkpoint and serving slice on the card: a run saved at sweep 2 and
+restored (in a fresh engine and in the same one) continues bit for bit as
+the uninterrupted run, for ``sequential`` and a 2-shard ``ring``; an
+exported artifact served from the card answers as the engine's predictor
+does, and coalesced requests answer as isolated ones, bit for bit.
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.bpmf import BPMFConfig, BPMFEngine, load_dataset
 from repro_torch.core.types import Bucket
 from repro_torch.kernels import bpmf_gram as gram_kernel
 from repro_torch.kernels import ops
+from repro_torch.serve import BPMFServer, PosteriorPredictor, parse_request, run_request
 
 SHAPES = [
     # (Ns, K, B, P): tests/test_kernels.py's shapes, then the small K the sampler tests use
@@ -275,3 +285,74 @@ def test_fused_kernel_row_over_three_pieces(cuda, K, compute_dtype):
     untouched = torch.ones(G0.shape[0], dtype=torch.bool, device=cuda)
     untouched[step.order.item.long()] = False
     assert torch.equal(G[untouched], G0[untouched]) and torch.equal(g[untouched], g0[untouched])
+
+
+def _checkpointed_run(name: str, directory: str | None):
+    """(config, ratings) of a 6-sweep run that saves every 2 sweeps into ``directory``."""
+    coo = load_dataset("synthetic", num_users=300, num_movies=200, nnz=8000, noise_std=0.3, seed=5)
+    cfg = BPMFConfig().replace(
+        name=name, num_shards=2, K=16, num_sweeps=6, burn_in=1, sweeps_per_block=2,
+        checkpoint_dir=directory, checkpoint_every=2, bucket_pads=(8, 32, 128),
+    )
+    return cfg, coo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sequential", "ring"])
+def test_checkpoint_resume_is_bit_identical_on_card(cuda, tmp_path, name):
+    cfg, coo = _checkpointed_run(name, str(tmp_path))
+    full = BPMFEngine(cfg).fit(coo)  # saves at sweeps 2, 4 and 6
+    assert full.device.type == "cuda" and full._manager().all_steps() == [2, 4, 6]
+    want = list(full.history)
+    U, V = full.factors()
+    for engine in (BPMFEngine(cfg), full):  # a fresh engine, and the same one rewound
+        assert engine.restore(coo, step=2) == 2
+        launches = gram_kernel.LAUNCHES + gram_kernel.FUSED_LAUNCHES
+        engine.fit()
+        assert gram_kernel.LAUNCHES + gram_kernel.FUSED_LAUNCHES > launches
+        assert engine.history == want
+        got_U, got_V = engine.factors()
+        np.testing.assert_array_equal(got_U, U)
+        np.testing.assert_array_equal(got_V, V)
+
+
+@pytest.mark.cuda
+def test_served_answers_are_the_engines_and_coalesce_bit_for_bit(cuda, tmp_path):
+    cfg, coo = _checkpointed_run("sequential", None)
+    engine = BPMFEngine(cfg.replace(keep_factor_samples=4, checkpoint_every=0)).fit(coo)
+    path = engine.export(str(tmp_path / "art"))
+    served = PosteriorPredictor.load(path, device="cuda")
+    ours = engine.predictor()
+    rng = np.random.default_rng(0)
+    rows, cols = rng.integers(0, 300, 64), rng.integers(0, 200, 64)
+    for a, b in zip(served.predict(rows, cols, return_std=True), ours.predict(rows, cols, return_std=True)):
+        assert a.tobytes() == b.tobytes()
+    ids, vals = served.top_k(rows, 10)
+    ids2, vals2 = ours.top_k(rows, 10)
+    np.testing.assert_array_equal(ids, ids2)
+    assert vals.tobytes() == vals2.tobytes()
+    for i in range(0, 64, 9):  # one query alone has the bits it has in the batch
+        one = served.predict(rows[i:i + 1], cols[i:i + 1], return_std=True)
+        assert one[0][0] == ours.predict(rows, cols)[i]
+        np.testing.assert_array_equal(served.top_k(int(rows[i]), 10)[0], ids[i])
+        assert served.top_k(int(rows[i]), 10)[1].tobytes() == vals[i].tobytes()
+
+    payloads = [{"rows": rng.integers(0, 300, n).tolist(), "cols": rng.integers(0, 200, n).tolist(),
+                 "std": True} for n in (1, 3, 8, 2)]
+    payloads += [{"user": int(u), "k": 10} for u in rng.integers(0, 300, 4)]
+    expected = [run_request(served, parse_request(p)) for p in payloads]
+    with BPMFServer(path, deadline_ms=300.0, adaptive=False, watch=False) as srv:
+        barrier = threading.Barrier(len(payloads))
+        results = [None] * len(payloads)
+
+        def client(i):
+            barrier.wait()
+            results[i] = srv.handle_request(payloads[i], timeout=60)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(payloads))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert srv.batcher.stats()["coalesced_requests"] > 0
+    assert results == [(200, want) for want in expected]

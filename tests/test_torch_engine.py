@@ -164,12 +164,22 @@ def test_unported_features_raise_naming_the_roadmap_item():
         BPMFEngine(BPMFConfig().replace(name="posterior_merge"), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         BPMFConfig().replace(pipeline_blocks=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 items 5 and 6"):
-        BPMFEngine(BPMFConfig().replace(checkpoint_dir="ckpt"), device="cpu")
-    engine = BPMFEngine(BPMFConfig(), device="cpu")
+    # checkpoints and export are ported (Queue 1 items 5 and 6): an engine
+    # with a checkpoint directory constructs, and without data its calls
+    # raise for the missing data, not for a missing port
+    engine = BPMFEngine(BPMFConfig().replace(checkpoint_dir="ckpt", checkpoint_every=2), device="cpu")
     for call in (engine.save, engine.restore, lambda: engine.export("art")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item"):
+        with pytest.raises(RuntimeError, match="no data"):
             call()
+    from repro_torch.serve import ArtifactMeta, PosteriorPredictor
+
+    one = np.ones((1, 1), np.float32)
+    arrays = {"U_mean": one, "V_mean": one, "U_samples": one[None], "V_samples": one[None]}
+    meta = ArtifactMeta(1, 1, 1, 0.0, 0.0, 3.0, 1, 1, "sequential", 1, 0)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        PosteriorPredictor(meta, arrays, "cpu", topk_mode="sharded")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        PosteriorPredictor(meta, arrays, "cpu").top_k(0, 1, sharded=True)
     with pytest.raises(ValueError, match="unknown backend"):
         BPMFEngine(BPMFConfig().replace(name="nope"), device="cpu")
 
