@@ -54,9 +54,27 @@ Phases (any failure stops the run with a non-zero exit and no result line):
    start, held to the ring's state; one traced ring sweep; and every
    (side, step, shard) layout of a sweep held against the fused kernel's
    plain version and timed beside ``torch.bmm`` on its pre-gathered chunks;
-9. the small seeded task of tests/test_posterior_quality.py on the card,
-   inside its recorded RMSE band;
-10. the ``yardsticks`` line: each kernel against ``torch.bmm`` where this
+9. ``posterior_merge`` at MovieLens-20M scale on the same ratings: 4
+   chains (``lpt`` partition, ``precision`` merge), all on this one card,
+   through ``BPMFEngine``, 4 sweeps in blocks of 2 with the counters reset
+   just before and read just after (one ``bpmf_gram`` launch per bucket of
+   every chain, and one second pass per split bucket); the host build
+   seconds, seconds per sweep, peak memory and each chain's users, ratings
+   and largest pads; the combined RMSE finite and falling from sweep 1 to
+   4; ``merge_checkpoint``, as ``ml20m_checkpoint`` (every chain's U and V
+   too); ``merge_export``: the merged artifact loaded on the card answers
+   32 ``predict`` pairs with std and ``top_k(user, 10)`` bit for bit as
+   ``engine.predictor()``, and its held-out RMSE stays within
+   ``MERGE_DEGRADATION_MAX[4]`` of the sequential artifact's at the same
+   sweep count (the column-mean baseline printed beside them);
+   ``merge_buckets``: each chain's heaviest-movie bucket and largest-P
+   users bucket against the plain version, timed beside ``torch.bmm``;
+10. the small seeded task of tests/test_posterior_quality.py on the card,
+   inside its recorded RMSE band; then ``posterior_merge`` there at P = 2
+   and 4, each merged artifact inside ``MERGE_RMSE_BAND[P]``, below 0.95 x
+   the column-mean baseline and within ``MERGE_DEGRADATION_MAX[P]`` of the
+   sequential artifact;
+11. the ``yardsticks`` line: each kernel against ``torch.bmm`` where this
    change is held to it (the heaviest-movie bucket, every bucket with at
    least 1 M real ratings, every movies-side ring layout) and the balance
    of the movies buckets' device time per real rating; these are measured
@@ -99,6 +117,7 @@ TEST_SHAPES = [(16, 8, 1, 8), (64, 32, 13, 70), (128, 32, 8, 128), (100, 16, 5, 
 ML20M_SHAPES = [(27_278, 59_711, 128, 33), (138_493, 20_391, 512, 129), (138_493, 5, 131_072, 65_537)]
 RMSE_BAND = (0.70, 0.82)  # tests/test_posterior_quality.py's recorded band
 RING_SHARDS = 4
+MERGE_PARTITIONS = 4
 ALPHA = 2.0  # the engine's default rating precision
 # tests/test_gram_fused.py's edge shapes: (Ns, K, cap, [(B, P, dead rows, all empty)])
 COUNTERS = ("LAUNCHES", "REDUCE_LAUNCHES", "PLAIN_CALLS", "FUSED_LAUNCHES", "FUSED_REDUCE_LAUNCHES",
@@ -705,6 +724,13 @@ def phase_ring_layouts(torch, gram_kernel, engine) -> dict:
     return per_sweep
 
 
+def chain_factors(engine) -> list:
+    """Each ``posterior_merge`` chain's (U, V) on the host; empty for a backend with one state."""
+    if not isinstance(engine.state, tuple):
+        return []
+    return [(st.U.cpu().numpy(), st.V.cpu().numpy()) for st in engine.state]
+
+
 def phase_checkpoint(torch, np, gram_kernel, engine, run: dict, label: str, card: str) -> None:
     """Restore the sweep-2 checkpoint into the same engine, run to sweep 4 again, and require the first pass's bits.
 
@@ -713,7 +739,10 @@ def phase_checkpoint(torch, np, gram_kernel, engine, run: dict, label: str, card
     """
     first = list(engine.history)
     U0, V0 = engine.factors()
+    chains0 = chain_factors(engine)
     step_dir = Path(engine.cfg.run.checkpoint_dir) / f"step_{CHECKPOINT_AT:08d}"
+    u_leaf = next(name for name, path in engine.backend.checkpoint_leaves()
+                  if path[0] == "state" and path[-1] == "U")
     files = sorted(step_dir.iterdir())
     for name in COUNTERS:
         setattr(gram_kernel, name, 0)
@@ -728,12 +757,16 @@ def phase_checkpoint(torch, np, gram_kernel, engine, run: dict, label: str, card
     U1, V1 = engine.factors()
     identical = {"metrics": engine.history == first and resumed == first[step:],
                  "U": bool(np.array_equal(U0, U1)), "V": bool(np.array_equal(V0, V1))}
+    if chains0:
+        identical["every_chain_U_V"] = all(
+            np.array_equal(a, b) for pair0, pair1 in zip(chains0, chain_factors(engine))
+            for a, b in zip(pair0, pair1))
     sweeps = engine.num_sweeps_done - step
     expected = {name: n * sweeps for name, n in run["expected_per_sweep"].items()}
     print(json.dumps({
         "phase": label, "card": card, "step": step, "leaves": len(files) - 1,
         "bytes_on_disk": sum(f.stat().st_size for f in files),
-        "state_U_shape": list(np.load(step_dir / "state__.U.npy", mmap_mode="r").shape),
+        "state_U_shape": list(np.load(step_dir / f"{u_leaf}.npy", mmap_mode="r").shape),
         "save_return_ms": run["save"]["save_return_ms"], "wait_ms": run["save"]["wait_ms"],
         "restore_ms": 1e3 * (t1 - t0), "resumed_sweeps": sweeps, "resumed_seconds": t2 - t1,
         "bit_identical": identical, "counts": counts, "expected_counts": expected,
@@ -887,6 +920,144 @@ def phase_serve(torch, np, gram_kernel, engine, tmp: Path, card: str) -> None:
         raise AssertionError(f"the second export was not swapped in (generation {generation})")
 
 
+def heldout_rmse(np, predictor, test) -> float:
+    """RMSE of a predictor's posterior-mean predictions on the held-out ratings."""
+    preds = predictor.predict(test.rows, test.cols)
+    return float(np.sqrt(np.mean((preds - test.vals) ** 2)))
+
+
+def phase_merge(torch, gram_kernel, BPMFEngine, ml: dict, ckpt_root: Path) -> dict:
+    """``posterior_merge`` with 4 chains on this card at ML20M: 4 sweeps, every launch counted."""
+    cfg = ml["cfg"].replace(name="posterior_merge", num_partitions=MERGE_PARTITIONS, partition_strategy="lpt",
+                            merge_method="precision", checkpoint_dir=str(ckpt_root / "merge"))
+    engine = BPMFEngine(cfg)
+    engine.prepare(ml["coo"])
+    b = engine.backend
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chains = []
+    for c, data in enumerate(b.chain_data):
+        buckets = list(data.users.buckets) + list(data.movies.buckets)
+        chains.append({
+            "chain": c, "device": str(b.devices[c]), "users": len(b.user_sets[c]),
+            "train_ratings": data.users.total_ratings(), "test_ratings": b._test_counts[c],
+            "buckets": len(buckets),
+            "split_buckets": sum(1 for bk in buckets if bk.P > gram_kernel.piece_width(bk.B, bk.P, sms)),
+            "largest_pad": {"users": max(bk.P for bk in data.users.buckets),
+                            "movies": max(bk.P for bk in data.movies.buckets)},
+        })
+    n_buckets = sum(ch["buckets"] for ch in chains)
+    split_buckets = sum(ch["split_buckets"] for ch in chains)
+    print(json.dumps({"phase": "merge_setup", "num_partitions": b.num_partitions,
+                      "host_seconds": b.prepare_seconds, "chains": chains}), flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in COUNTERS:
+        setattr(gram_kernel, name, 0)
+    block_s, save = [], {}
+    t_prev = time.perf_counter()
+    for m in engine.sample():
+        if m.sweep % cfg.run.sweeps_per_block == 0:
+            now = time.perf_counter()
+            block_s.append(now - t_prev)
+            if m.sweep == CHECKPOINT_AT:
+                save = timed_save(engine)  # not charged to the next block
+                now = time.perf_counter()
+            t_prev = now
+    counts = {name: getattr(gram_kernel, name) for name in COUNTERS}
+    peak = torch.cuda.max_memory_allocated()
+    rmse = [[m.rmse_sample, m.rmse_avg] for m in engine.history]
+    sweeps = engine.num_sweeps_done
+    print(json.dumps({
+        "phase": "merge_sweeps", "sweeps": sweeps,
+        "seconds_per_sweep_by_block": [s_ / cfg.run.sweeps_per_block for s_ in block_s],
+        "rmse_sample_avg": rmse, "counts": counts,
+        "expected": {"LAUNCHES": n_buckets * sweeps, "REDUCE_LAUNCHES": split_buckets * sweeps},
+        "max_memory_allocated_bytes": peak,
+    }), flush=True)
+    if not all(math.isfinite(v) for row in rmse for v in row):
+        raise AssertionError(f"non-finite combined RMSE of the merge chains: {rmse}")
+    if not rmse[-1][0] < rmse[0][0]:
+        raise AssertionError(f"the merge chains' RMSE did not fall from sweep 1 to sweep 4: {rmse}")
+    if counts["LAUNCHES"] != n_buckets * sweeps:
+        raise AssertionError(f"{counts['LAUNCHES']} kernel launches, want {n_buckets} buckets of "
+                             f"{b.num_partitions} chains x {sweeps} sweeps")
+    if counts["REDUCE_LAUNCHES"] != split_buckets * sweeps:
+        raise AssertionError(f"{counts['REDUCE_LAUNCHES']} second passes, want {split_buckets} x {sweeps}")
+    if counts["PLAIN_CALLS"] or counts["FUSED_PLAIN_CALLS"] or counts["FUSED_LAUNCHES"]:
+        raise AssertionError(f"the merge chains ran something other than bpmf_gram: {counts}")
+    return {"engine": engine, "launches": counts["LAUNCHES"], "reduce_launches": counts["REDUCE_LAUNCHES"],
+            "save": save, "expected_per_sweep": {"LAUNCHES": n_buckets, "REDUCE_LAUNCHES": split_buckets},
+            "steady_sweep_s": block_s[-1] / cfg.run.sweeps_per_block}
+
+
+def phase_merge_export(torch, np, engine, test, seq_rmse: float, baseline: float, tmp: Path,
+                       card: str, MERGE_DEGRADATION_MAX) -> None:
+    """The merged artifact: served from the card bit for bit as in-process, and its RMSE against the sequential one's."""
+    from repro_torch.serve import PosteriorPredictor
+
+    art = str(tmp / "merge_artifact")
+    t0 = time.perf_counter()
+    engine.export(art)
+    t1 = time.perf_counter()
+    served = PosteriorPredictor.load(art, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ours = engine.predictor()
+    meta = served.meta
+    rng = np.random.default_rng(4)
+    rows, cols = rng.integers(0, meta.num_users, 32), rng.integers(0, meta.num_movies, 32)
+    for a, b in zip(served.predict(rows, cols, return_std=True), ours.predict(rows, cols, return_std=True)):
+        if a.tobytes() != b.tobytes():
+            raise AssertionError("the merged artifact's predict differs from engine.predictor()'s")
+    users = [int(u) for u in rng.integers(0, meta.num_users, 4)]
+    for u in users:
+        for a, b in zip(served.top_k(u, 10), ours.top_k(u, 10)):
+            if a.tobytes() != b.tobytes():
+                raise AssertionError(f"the merged artifact's top_k({u}, 10) differs from engine.predictor()'s")
+    merged = heldout_rmse(np, served, test)
+    bound = MERGE_DEGRADATION_MAX[MERGE_PARTITIONS]
+    print(json.dumps({
+        "phase": "merge_export", "card": card, "export_ms": 1e3 * (t1 - t0), "load_ms": 1e3 * (t2 - t1),
+        "num_mean_samples": meta.num_mean_samples, "num_kept_samples": meta.num_kept_samples,
+        "heldout_ratings": int(len(test.vals)), "rmse_merged_artifact": merged,
+        "rmse_sequential_artifact": seq_rmse, "rmse_column_mean_baseline": baseline,
+        "degradation": merged - seq_rmse, "degradation_max": bound,
+    }), flush=True)
+    if not (math.isfinite(merged) and merged - seq_rmse <= bound):
+        raise AssertionError(f"merged artifact RMSE {merged} degrades {merged - seq_rmse} over the "
+                             f"sequential artifact's {seq_rmse}; bound {bound}")
+
+
+def phase_merge_buckets(torch, gram_kernel, engine) -> dict:
+    """Each chain's heaviest-movie bucket and largest-P users bucket against the plain version, timed."""
+    b = engine.backend
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    max_err = 0.0
+    for c, (data, state) in enumerate(zip(b.chain_data, engine.state)):
+        for name, side, X in (("movies", data.movies, state.U), ("users", data.users, state.V)):
+            bk = max(side.buckets, key=lambda x: x.P)
+            got = gram_kernel.bpmf_gram(X, bk.nbr, bk.val, bk.nnz)
+            want = gram_kernel.bpmf_gram_plain(X, bk.nbr, bk.val, bk.nnz)
+            torch.cuda.synchronize()
+            err, ratio = gram_error(torch, got, want, bk.val, bk.P)
+            max_err = max(max_err, err)
+            del got, want
+            nnz = int(bk.nnz.sum())
+            print(json.dumps({
+                "phase": "merge_bucket", "chain": c, "side": name, "Ns": X.shape[0], "P": bk.P, "B": bk.B,
+                "nnz": nnz, "W": gram_kernel.piece_width(bk.B, bk.P, sms), "max_abs_err": err,
+                "err_over_allowance": ratio,
+                "kernel_ms": time_ms(torch, lambda: gram_kernel.bpmf_gram(X, bk.nbr, bk.val, bk.nnz), 5),
+                "kernel_device_ms": device_ms(torch, lambda: gram_kernel.bpmf_gram(X, bk.nbr, bk.val, bk.nnz)),
+                "plain_ms": time_ms(torch, lambda: gram_kernel.bpmf_gram_plain(X, bk.nbr, bk.val, bk.nnz), 2),
+                "bmm_contraction_only_ms": bmm_ms(torch, X, bk.nbr, bk.val, bk.nnz, 5),
+                "bound_ms": bound_ms(*gram_work(nnz, bk.B, X.shape[0], X.shape[1])),
+            }), flush=True)
+            torch.cuda.empty_cache()
+    return {"max_abs_err": max_err}
+
+
 def phase_yardsticks(gram: dict, fused: dict) -> dict:
     """Each kernel against ``torch.bmm`` (contraction only) where it is held to it, and the balance.
 
@@ -921,7 +1092,8 @@ def phase_yardsticks(gram: dict, fused: dict) -> dict:
     return out
 
 
-def phase_small_task(gram_kernel, BPMFConfig, BPMFEngine, load_dataset) -> None:
+def phase_small_task(np, gram_kernel, BPMFConfig, BPMFEngine, load_dataset, subset_merge,
+                     train_test_split) -> None:
     coo = load_dataset("synthetic", num_users=150, num_movies=80, nnz=4000, noise_std=0.3, seed=7)
     cfg = BPMFConfig().replace(K=8, num_sweeps=10, burn_in=3, bucket_pads=(8, 32, 128),
                                keep_factor_samples=4)
@@ -932,6 +1104,25 @@ def phase_small_task(gram_kernel, BPMFConfig, BPMFEngine, load_dataset) -> None:
                       "launches": gram_kernel.LAUNCHES - before}), flush=True)
     if not lo < engine.rmse < hi:
         raise AssertionError(f"small-task RMSE {engine.rmse} left the band {RMSE_BAND}")
+
+    # posterior_merge's statistical gates (tests/test_posterior_quality.py) on the card
+    _, test = train_test_split(coo, cfg.run.test_fraction, cfg.run.seed)
+    seq = heldout_rmse(np, engine.predictor(), test)
+    baseline = subset_merge.column_mean_rmse(coo, cfg.run.test_fraction, cfg.run.seed)
+    line = {"phase": "small_task_merge", "rmse_sequential_artifact": seq, "rmse_column_mean_baseline": baseline}
+    failed = []
+    for P in (2, 4):
+        merged = heldout_rmse(np, BPMFEngine(cfg.replace(name="posterior_merge", num_partitions=P)).fit(coo)
+                              .predictor(), test)
+        lo, hi = subset_merge.MERGE_RMSE_BAND[P]
+        bound = subset_merge.MERGE_DEGRADATION_MAX[P]
+        line[f"P{P}"] = {"rmse_merged_artifact": merged, "band": [lo, hi], "degradation": merged - seq,
+                         "degradation_max": bound}
+        if not (lo < merged < hi and merged < 0.95 * baseline and merged - seq <= bound):
+            failed.append(P)
+    print(json.dumps(line), flush=True)
+    if failed:
+        raise AssertionError(f"posterior_merge at P = {failed} failed its small-task gates: {line}")
 
 
 def main() -> int:
@@ -948,6 +1139,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.bpmf import BPMFConfig, BPMFEngine, load_dataset
     from repro_torch.core import distributed as dist
+    from repro_torch.core import subset_merge
+    from repro_torch.data.sparse import train_test_split
     from repro_torch.core.types import Bucket
     from repro_torch.data.synthetic import ML20M_LIKE, synthetic_ratings
     from repro_torch.kernels import bpmf_gram as gram_kernel
@@ -972,6 +1165,9 @@ def main() -> int:
         phase_fused_one_shard(torch, gram_kernel, ops, ml["engine"])
         phase_requests(torch, np, ml["engine"])
         phase_serve(torch, np, gram_kernel, ml["engine"], tmp, card)
+        # the held-out set and the sequential artifact's RMSE on it, at sweep 4
+        _, heldout = train_test_split(ml["coo"], ml["cfg"].run.test_fraction, ml["cfg"].run.seed)
+        seq_rmse = heldout_rmse(np, ml["engine"].predictor(), heldout)
         phase_profile(torch, ml["engine"], ml["steady_sweep_s"])
         del ml["engine"]
         torch.cuda.empty_cache()
@@ -979,9 +1175,22 @@ def main() -> int:
         phase_checkpoint(torch, np, gram_kernel, ring["engine"], ring, "ring_checkpoint", card)
     phase_profile(torch, ring["engine"], ring["steady_sweep_s"], "profile_one_ring_sweep")
     fused = phase_ring_layouts(torch, gram_kernel, ring["engine"])
-    del ring["engine"], ml["coo"]
+    del ring["engine"]
     torch.cuda.empty_cache()
-    phase_small_task(gram_kernel, BPMFConfig, BPMFEngine, load_dataset)
+    t_merge = time.perf_counter()
+    baseline = subset_merge.column_mean_rmse(ml["coo"], ml["cfg"].run.test_fraction, ml["cfg"].run.seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-merge-") as tmp_name:
+        merge = phase_merge(torch, gram_kernel, BPMFEngine, ml, Path(tmp_name))
+        phase_checkpoint(torch, np, gram_kernel, merge["engine"], merge, "merge_checkpoint", card)
+        phase_merge_export(torch, np, merge["engine"], heldout, seq_rmse, baseline, Path(tmp_name), card,
+                           subset_merge.MERGE_DEGRADATION_MAX)
+    phase_merge_buckets(torch, gram_kernel, merge["engine"])
+    del merge["engine"], ml["coo"]
+    torch.cuda.empty_cache()
+    t_small = time.perf_counter()
+    phase_small_task(np, gram_kernel, BPMFConfig, BPMFEngine, load_dataset, subset_merge, train_test_split)
+    print(json.dumps({"phase": "merge_wall_seconds", "ml20m_merge_phases": t_small - t_merge,
+                      "small_task_with_merges": time.perf_counter() - t_small}), flush=True)
 
     phase_yardsticks(ml["gram"], fused)
     gram = ml["gram"]
@@ -999,6 +1208,8 @@ def main() -> int:
         "library_ms": gram["bmm_contraction_only_ms"],
         "device_ms": gram["kernel_device_ms"],
         "reduce_launches": ml["reduce_launches"],
+        "merge_launches": merge["launches"],
+        "merge_reduce_launches": merge["reduce_launches"],
         "note": f"ms, plain_ms, bound_ms and library_ms cover the {gram['launches']} launches of one "
                 "ML20M sweep (and their second passes); ms times single calls, device_ms runs of "
                 "back-to-back calls; no single PyTorch call computes the masked gather + Gram, so "

@@ -9,15 +9,21 @@ Registered here:
     ``BackendConfig.num_shards`` shards (paper §IV-C; ring_async keeps
     ``pipeline_depth`` rotations in flight, arXiv:1705.10633).
 
-Every backend draws the same posterior samples for the same ``(seed,
-data)``, up to float reduction order. ``posterior_merge`` is named here
-so that asking for it says which ROADMAP item brings it.
+  * ``"posterior_merge"`` — ``BackendConfig.num_partitions`` independent
+    chains of the sequential sampler over user partitions, whose subset
+    posteriors merge once, at export (arXiv:1703.00734, DESIGN.md §12).
+
+The full-data backends draw the same posterior samples for the same
+``(seed, data)``, up to float reduction order; ``posterior_merge`` is
+approximate inference (``exact_parity = False``).
 
 Each backend also moves its state, prediction and posterior accumulators
 to and from *host trees*: nested dicts of numpy arrays with the JAX
 package's field names, layouts and dtypes (``int32`` counters), which the
-engine writes as checkpoint leaves. A ring's per-shard blocks travel
-concatenated in shard order, as the JAX package's ring-sharded arrays do.
+engine writes as the checkpoint leaves that :meth:`Backend.checkpoint_leaves`
+names. A ring's per-shard blocks travel concatenated in shard order, as the
+JAX package's ring-sharded arrays do; ``posterior_merge`` saves one tree
+per chain.
 """
 from __future__ import annotations
 
@@ -33,18 +39,64 @@ from repro_torch import convert
 from repro_torch.bpmf.config import BPMFConfig
 from repro_torch.checkpoint import host_snapshot_leaf
 from repro_torch.core import distributed as dist
-from repro_torch.core import gibbs
+from repro_torch.core import gibbs, prng, subset_merge
 from repro_torch.core.prediction import PredictionState
-from repro_torch.core.types import BPMFState, PosteriorAccum
-from repro_torch.data.sparse import RatingsCOO, build_bpmf_data
+from repro_torch.core.subset_merge import MergeAccum
+from repro_torch.core.types import BPMFState, HyperParams, PosteriorAccum
+from repro_torch.data.sparse import (
+    RatingsCOO,
+    build_bpmf_data,
+    build_bpmf_data_presplit,
+    train_test_split,
+)
 from repro_torch.launch.mesh import bpmf_ring
 
 BACKENDS: dict[str, type["Backend"]] = {}
 
-# backends of the JAX package that this port has not brought over yet
-_NOT_YET_PORTED = {
-    "posterior_merge": "ROADMAP Queue 1 item 8 (posterior_merge)",
-}
+# The leaves of one state, prediction and posterior tree, in the JAX
+# package's tree order: dataclass fields as declared, dict keys sorted.
+_STATE_FIELDS = (("U",), ("V",), ("hyper_U", "mu"), ("hyper_U", "Lam"),
+                 ("hyper_V", "mu"), ("hyper_V", "Lam"), ("sweep",))
+_PRED_FIELDS = (("sum_pred",), ("num_samples",))
+_POSTERIOR_KEYS = ("U_samples", "U_sum", "V_samples", "V_sum", "count")
+
+
+def checkpoint_leaves(chains: int | None = None) -> tuple[tuple[str, tuple], ...]:
+    """The leaves of an engine checkpoint and their places in the engine's host tree.
+
+    In the JAX package's manifest order, with its names: tree paths joined
+    by ``"__"``, where a dict key gives the bare key, a tuple index the
+    bare integer and a dataclass field ``".<field>"``. The top-level dict
+    is ``{"history", "posterior", "pred", "state"}``.
+
+    Args:
+        chains: ``None`` for one state, prediction and posterior tree; C
+            for ``posterior_merge``'s tuples of C per-chain state and
+            prediction trees and its posterior keyed ``chain_000``, ...
+
+    Returns:
+        ``(name, path)`` pairs; ``path`` indexes the host tree.
+    """
+    if chains is None:
+        posterior = [("posterior", ("posterior",))]
+        pred, state = [("pred", ("pred",))], [("state", ("state",))]
+    else:
+        posterior = [(f"posterior__{_chain_name(c)}", ("posterior", _chain_name(c))) for c in range(chains)]
+        pred = [(f"pred__{c}", ("pred", c)) for c in range(chains)]
+        state = [(f"state__{c}", ("state", c)) for c in range(chains)]
+    out: list[tuple[str, tuple]] = [("history", ("history",))]
+    for prefix, path in posterior:
+        out += [(f"{prefix}__{k}", path + (k,)) for k in _POSTERIOR_KEYS]
+    for trees, fields in ((pred, _PRED_FIELDS), (state, _STATE_FIELDS)):
+        for prefix, path in trees:
+            out += [("__".join([prefix, *(f".{f}" for f in field)]), path + field) for field in fields]
+    return tuple(out)
+
+
+def _chain_name(c: int) -> str:
+    """Checkpoint subtree key of ``posterior_merge`` chain ``c`` (zero-padded: keys sort in chain order)."""
+    return f"chain_{c:03d}"
+
 
 _EMPTY_SUM = np.zeros((0, 0), np.float32)
 _EMPTY_STACK = np.zeros((0, 0, 0), np.float32)
@@ -175,15 +227,10 @@ def get_backend(cfg: BPMFConfig, device: torch.device) -> "Backend":
     """Instantiate the backend named by ``cfg.backend.name`` on ``device``.
 
     Raises:
-        NotImplementedError: A JAX-package backend this port does not have yet.
-        ValueError: A name in neither registry.
+        ValueError: A name not in the registry.
     """
     name = cfg.backend.name
     if name not in BACKENDS:
-        if name in _NOT_YET_PORTED:
-            raise NotImplementedError(
-                f"backend {name!r} is not ported yet: {_NOT_YET_PORTED[name]}"
-            )
         raise ValueError(f"unknown backend {name!r}; available: {sorted(BACKENDS)}")
     return BACKENDS[name](cfg, device)
 
@@ -202,6 +249,9 @@ class Backend(abc.ABC):
     """
 
     name: str = "?"
+    # whether the backend draws the sequential sampler's samples (up to
+    # float reduction order); posterior_merge is approximate inference
+    exact_parity = True
 
     def __init__(self, cfg: BPMFConfig, device: torch.device):
         self.cfg = cfg
@@ -285,6 +335,10 @@ class Backend(abc.ABC):
             out["U_mean"] = np.asarray(tree["U_sum"] / n, np.float32)
             out["V_mean"] = np.asarray(tree["V_sum"] / n, np.float32)
         return out
+
+    def checkpoint_leaves(self) -> tuple[tuple[str, tuple], ...]:
+        """The ``(name, path)`` leaves of this backend's checkpoints (:func:`checkpoint_leaves`)."""
+        return checkpoint_leaves()
 
     @property
     def prepared(self) -> bool:
@@ -543,3 +597,213 @@ class AsyncRingBackend(DistributedBackend):
 @register_backend("allgather")
 class AllGatherBackend(DistributedBackend):
     """Synchronous baseline: gather every opposite shard, then update locally."""
+
+
+@register_backend("posterior_merge")
+class PosteriorMergeBackend(Backend):
+    """Independent partition chains and a subset-posterior merge (DESIGN.md §12).
+
+    The limited-communication regime of arXiv:1703.00734 / 2004.02561: one
+    global train/test split, users partitioned into
+    ``BackendConfig.num_partitions`` chains by the ring's nnz cost model,
+    and one independent chain of the sequential sampler per partition.
+    Chain c sits on ring shard c's device (card ``c % n`` of the n visible
+    cards; with one card every chain shares it). Chains exchange no bytes
+    while they sample; their posteriors meet once, at export
+    (:func:`repro_torch.core.subset_merge.merge_chain_trees`, by
+    ``BackendConfig.merge_method``).
+
+    State, prediction and posterior accumulators are tuples of per-chain
+    objects (checkpointed per chain, the posterior keyed ``chain_000``,
+    ...). Chain c draws from ``fold_in(run_key, c)``, and user rows start
+    from the sequential backend's rows of the same original ids.
+    """
+
+    exact_parity = False
+
+    def prepare(self, coo: RatingsCOO) -> None:
+        """Partition the users, split once, and build and place each chain's buckets.
+
+        ``prepare_seconds`` records the host wall time of the partition,
+        split and per-chain builds (``"build"``) and of the placement
+        (``"upload"``).
+        """
+        t0 = time.perf_counter()
+        bk = self.cfg.backend
+        P = bk.num_partitions or min(bpmf_ring(0, self.device).num_shards, coo.num_users)
+        self.user_sets = subset_merge.partition_users(coo, P, strategy=bk.partition_strategy)
+        # one global split and centering, the sequential backend's, so the
+        # backends compare inference and not data
+        train, test = train_test_split(coo, self.cfg.run.test_fraction, self.cfg.run.seed)
+        self._mean = float(train.vals.mean()) if train.nnz else 0.0
+        self._range = (float(coo.vals.min()), float(coo.vals.max()))
+        train_subs = subset_merge.split_by_users(train, self.user_sets)
+        test_subs = subset_merge.split_by_users(test, self.user_sets)
+        self._test_counts = [t.nnz for t in test_subs]
+        host = [
+            build_bpmf_data_presplit(
+                subset_merge.localize_users(train_subs[c], self.user_sets[c]),
+                subset_merge.localize_users(test_subs[c], self.user_sets[c]),
+                pads=bk.bucket_pads,
+                mean_rating=self._mean,
+                min_rating=self._range[0],
+                max_rating=self._range[1],
+            )
+            for c in range(P)
+        ]
+        t1 = time.perf_counter()
+        self.devices = bpmf_ring(P, self.device).devices
+        self.chain_data = [d.to(dev) for d, dev in zip(host, self.devices)]
+        if self.home.type == "cuda":
+            torch.cuda.synchronize(self.home)
+        self.prepare_seconds = {"build": t1 - t0, "upload": time.perf_counter() - t1}
+        self._num_users, self._num_movies = coo.num_users, coo.num_movies
+        self._prepared = True
+
+    @property
+    def num_partitions(self) -> int:
+        """Number of chains C."""
+        return len(self.user_sets)
+
+    def checkpoint_leaves(self) -> tuple[tuple[str, tuple], ...]:
+        """Per-chain state and prediction trees, the posterior keyed by chain."""
+        return checkpoint_leaves(self.num_partitions)
+
+    @property
+    def home(self) -> torch.device:
+        """Chain 0's device: the combined metrics live here."""
+        return self.devices[0]
+
+    def init_state(self, key: torch.Tensor) -> tuple[BPMFState, ...]:
+        """Per-chain prior-predictive states.
+
+        U rows are keyed by *original* user id (the sequential init's rows
+        of the chain's users), and V is the same in every chain.
+        """
+        K, dt = self.core_cfg.K, self.core_cfg.sample_dtype
+        ku, kv = prng.split(key)
+        V = gibbs.init_rows(kv, torch.arange(self._num_movies, device=key.device), K).to(dt)
+        states = []
+        for uids, dev in zip(self.user_sets, self.devices):
+            U = gibbs.init_rows(ku, torch.from_numpy(uids).to(key.device), K).to(dt)
+            states.append(BPMFState(
+                U=U.to(dev), V=V.to(dev),
+                hyper_U=HyperParams.init(K, dt, dev), hyper_V=HyperParams.init(K, dt, dev),
+                sweep=0,
+            ))
+        return tuple(states)
+
+    def _combine_metric_rows(self, per_chain: list[torch.Tensor]) -> torch.Tensor:
+        """``C`` per-chain ``[B, 3]`` metric rows to the ``[B, 3]`` global rows, on :attr:`home`.
+
+        Each chain's RMSE covers its own (disjoint) test subset, so the
+        global RMSE is the quadratic mean weighted by the subsets' sizes,
+        ``sqrt(sum_c T_c rmse_c^2 / T)``, in float64 and summed in chain
+        order as the JAX package does; a chain with no test rating reports
+        NaN and weighs zero. The sweep column is chain 0's (chains run in
+        lock-step).
+        """
+        total = max(float(sum(self._test_counts)), 1.0)
+        acc = None
+        for T_c, rows in zip(self._test_counts, per_chain):
+            term = float(T_c) * torch.nan_to_num(rows[:, :2].to(self.home, torch.float64)).square()
+            acc = term if acc is None else acc + term
+        sweep = per_chain[0][:, 2:3].to(self.home, torch.float64)
+        return torch.cat([torch.sqrt(acc / total), sweep], dim=1).to(torch.float32)
+
+    def sweep_block(self, key, state, pred, accum: MergeAccum, block_size):
+        """``block_size`` sweeps of every chain, then the combined metric rows.
+
+        Every chain's block is issued before any metric is combined, and
+        nothing is read back to the host here.
+        """
+        outs = [
+            gibbs.gibbs_sweep_block(
+                subset_merge.chain_key(key, c).to(dev), state[c], pred[c], accum.chains[c],
+                self.chain_data[c], self.core_cfg, block_size,
+            )
+            for c, dev in enumerate(self.devices)
+        ]
+        metrics = self._combine_metric_rows([o[3] for o in outs])
+        return (
+            tuple(o[0] for o in outs),
+            tuple(o[1] for o in outs),
+            MergeAccum(chains=tuple(o[2] for o in outs)),
+            metrics,
+        )
+
+    def factors(self, state) -> tuple[np.ndarray, np.ndarray]:
+        """(U, V) of the current per-chain samples: U rows from their owning
+        chain, V the mean of the chains' draws."""
+        U = np.zeros((self._num_users, self.core_cfg.K), np.float32)
+        Vs = []
+        for st, uids in zip(state, self.user_sets):
+            U[uids] = st.U.cpu().numpy().astype(np.float32)
+            Vs.append(st.V.cpu().numpy().astype(np.float32))
+        return U, np.mean(np.stack(Vs), axis=0).astype(np.float32)
+
+    def _accum_shaped(self, c: int, device) -> PosteriorAccum:
+        return PosteriorAccum.init(
+            len(self.user_sets[c]), self._num_movies, self.core_cfg.K,
+            self.cfg.run.keep_factor_samples, device,
+        )
+
+    def init_accum(self) -> MergeAccum:
+        """Zeroed per-chain accumulators, each on its chain's device."""
+        return MergeAccum(chains=tuple(self._accum_shaped(c, dev) for c, dev in enumerate(self.devices)))
+
+    def init_pred(self) -> tuple[PredictionState, ...]:
+        """Per-chain prediction accumulators over each chain's test subset."""
+        return tuple(PredictionState.init(n, dev) for n, dev in zip(self._test_counts, self.devices))
+
+    def accum_host(self, accum: MergeAccum) -> dict:
+        """``{"chain_000": tree, ...}``, one :func:`accum_host_tree` per chain."""
+        return {_chain_name(c): accum_host_tree(a) for c, a in enumerate(accum.chains)}
+
+    def accum_from_host(self, tree: dict) -> MergeAccum:
+        """Per-chain accumulators on their devices from an :meth:`accum_host` tree."""
+        return MergeAccum(chains=tuple(
+            accum_from_host_tree(tree[_chain_name(c)], self._accum_shaped(c, "meta")).to(dev)
+            for c, dev in enumerate(self.devices)
+        ))
+
+    def state_host(self, state) -> tuple[dict, ...]:
+        """One state tree per chain (chain-local U rows)."""
+        return tuple(convert.to_tree(st) for st in state)
+
+    def state_from_host(self, tree) -> tuple[BPMFState, ...]:
+        """Per-chain states on their devices; ``tree[c]`` is chain c's tree."""
+        return tuple(convert.state_from_tree(tree[c]).to(dev) for c, dev in enumerate(self.devices))
+
+    def pred_host(self, pred) -> tuple[dict, ...]:
+        """One prediction tree per chain."""
+        return tuple(super(PosteriorMergeBackend, self).pred_host(p) for p in pred)
+
+    def pred_from_host(self, tree) -> tuple[PredictionState, ...]:
+        """Per-chain prediction accumulators on their devices."""
+        return tuple(convert.prediction_from_tree(tree[c]).to(dev) for c, dev in enumerate(self.devices))
+
+    def posterior_export(self, accum: MergeAccum) -> dict:
+        """The backend's one communication event: every chain's accumulator
+        to the host, merged (:func:`repro_torch.core.subset_merge.merge_chain_trees`)."""
+        return subset_merge.merge_chain_trees(
+            [accum_host_tree(a) for a in accum.chains],
+            self.user_sets,
+            self._num_users,
+            method=self.cfg.backend.merge_method,
+        )
+
+    @property
+    def num_test(self) -> int:
+        """Number of held-out ratings, over all chains."""
+        return sum(self._test_counts)
+
+    @property
+    def mean_rating(self) -> float:
+        """Global training-set mean rating."""
+        return self._mean
+
+    @property
+    def rating_range(self) -> tuple[float, float]:
+        """(lo, hi) clip range of all ratings."""
+        return self._range

@@ -8,8 +8,7 @@ and checks, so a configuration carries over:
   * :class:`BackendConfig` — execution: backend name, kernels, bucketing
 
 What this port does not run yet raises ``NotImplementedError`` naming the
-ROADMAP item that brings it: ``pipeline_blocks > 1`` here, and
-``posterior_merge`` in the backend registry.
+ROADMAP item that brings it: ``pipeline_blocks > 1``.
 """
 from __future__ import annotations
 
@@ -116,7 +115,7 @@ class BackendConfig:
 
     Attributes:
         name: Backend registry key: ``"sequential"``, ``"ring"``,
-            ``"ring_async"`` or ``"allgather"``.
+            ``"ring_async"``, ``"allgather"`` or ``"posterior_merge"``.
         num_shards: Ring length S of the distributed backends (0 = one
             shard per visible card, or one on the CPU). Shard d sits on
             card ``d % n``; shards that share a card run there in turn.
@@ -128,9 +127,15 @@ class BackendConfig:
         use_pallas: **Deprecated** boolean forerunner of ``gram_impl``
             (``True -> "pallas"``, ``False -> "xla"``); it warns.
         bucket_pads: Neighbor-count pad classes of the bucketed layout.
-        partition_strategy: Load balancing of items onto shards.
-        num_partitions: ``posterior_merge`` chains.
-        merge_method: ``posterior_merge`` combination.
+        partition_strategy: Load balancing of items onto shards
+            (``"lpt"``, ``"block"`` or ``"naive"``); ``posterior_merge``
+            partitions its users by it.
+        num_partitions: ``posterior_merge`` only: independent partition
+            chains (0 = one per visible card, one on the CPU). Chain c
+            sits on card ``c % n``.
+        merge_method: ``posterior_merge`` only: ``"precision"``
+            (precision-weighted product of the subset Gaussians) or
+            ``"pool"`` (uniform weights).
         donate_blocks: Block carry donation: ``"auto"``, ``"on"`` or
             ``"off"``. The port updates its accumulators in place either way.
     """

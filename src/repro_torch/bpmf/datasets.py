@@ -1,13 +1,14 @@
 """Dataset registry behind ``repro_torch.bpmf.load_dataset(name, **kw)``.
 
 Loaders return a :class:`repro_torch.data.sparse.RatingsCOO`; the engine
-owns the train/test split. Only ``synthetic`` is registered so far; the
-``movielens`` and ``chembl`` loaders are ROADMAP Queue 1 item 2 work.
+owns the train/test split. Registered: ``synthetic``, ``movielens`` and
+``chembl`` (the real files when a path is given, else synthetic stand-ins).
 """
 from __future__ import annotations
 
 from typing import Callable
 
+from repro_torch.data.movielens import load_chembl, load_movielens
 from repro_torch.data.sparse import RatingsCOO
 from repro_torch.data.synthetic import SyntheticSpec, synthetic_ratings
 
@@ -62,3 +63,15 @@ def _synthetic(
     )
     coo, _ = synthetic_ratings(spec)
     return coo
+
+
+@register_dataset("movielens")
+def _movielens(path: str | None = None, variant: str = "ml-100k") -> RatingsCOO:
+    """Real ml-20m/ml-100k files when ``path`` exists, else the synthetic stand-in."""
+    return load_movielens(path, variant)
+
+
+@register_dataset("chembl")
+def _chembl(path: str | None = None) -> RatingsCOO:
+    """ChEMBL IC50 compound x target subset (paper §V workload)."""
+    return load_chembl(path)

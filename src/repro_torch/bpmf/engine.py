@@ -36,38 +36,16 @@ from repro_torch.bpmf.config import BPMFConfig
 from repro_torch.checkpoint import CheckpointManager, CheckpointSchemaError
 from repro_torch.core import prng
 from repro_torch.core.gibbs import SweepMetrics
-from repro_torch.data.sparse import RatingsCOO
+from repro_torch.data.sparse import ChunkedRatings, RatingsCOO
 from repro_torch.serve.artifact import ArtifactMeta, save_artifact
 from repro_torch.serve.predictor import PosteriorPredictor
 from repro_torch.utils import resolve_device
 
-# The leaves of an engine checkpoint and their places in the engine's host
-# tree, in the JAX package's manifest order. Its names come from JAX tree
-# paths joined by "__": a dict key gives the bare key, a dataclass field
-# ".<field>"; its order is the tree's (dict keys sorted, fields as declared).
-_CHECKPOINT_LEAVES = (
-    ("history", ("history",)),
-    ("posterior__U_samples", ("posterior", "U_samples")),
-    ("posterior__U_sum", ("posterior", "U_sum")),
-    ("posterior__V_samples", ("posterior", "V_samples")),
-    ("posterior__V_sum", ("posterior", "V_sum")),
-    ("posterior__count", ("posterior", "count")),
-    ("pred__.sum_pred", ("pred", "sum_pred")),
-    ("pred__.num_samples", ("pred", "num_samples")),
-    ("state__.U", ("state", "U")),
-    ("state__.V", ("state", "V")),
-    ("state__.hyper_U__.mu", ("state", "hyper_U", "mu")),
-    ("state__.hyper_U__.Lam", ("state", "hyper_U", "Lam")),
-    ("state__.hyper_V__.mu", ("state", "hyper_V", "mu")),
-    ("state__.hyper_V__.Lam", ("state", "hyper_V", "Lam")),
-    ("state__.sweep", ("state", "sweep")),
-)
-
-
-def _flatten(tree: dict) -> dict[str, np.ndarray]:
-    """The checkpoint leaves of a host tree, in manifest order."""
+def _flatten(tree: dict, table) -> dict[str, np.ndarray]:
+    """The checkpoint leaves of a host tree, in the order of ``table``
+    (:meth:`Backend.checkpoint_leaves`)."""
     out = {}
-    for name, path in _CHECKPOINT_LEAVES:
+    for name, path in table:
         node = tree
         for part in path:
             node = node[part]
@@ -75,10 +53,14 @@ def _flatten(tree: dict) -> dict[str, np.ndarray]:
     return out
 
 
-def _unflatten(leaves: dict[str, np.ndarray]) -> dict:
-    """The host tree of the leaves read (those of a subset of the table)."""
+def _unflatten(leaves: dict[str, np.ndarray], table) -> dict:
+    """The host tree of the leaves read (those of a subset of ``table``).
+
+    A tuple index on a path becomes an int dict key, which the backends'
+    ``*_from_host`` hooks index as they index a tuple.
+    """
     tree: dict = {}
-    for name, path in _CHECKPOINT_LEAVES:
+    for name, path in table:
         if name in leaves:
             node = tree
             for part in path[:-1]:
@@ -100,7 +82,7 @@ class BPMFEngine:
 
         Raises:
             RuntimeError: No CUDA device and no CPU request.
-            NotImplementedError: A backend this port does not have yet.
+            ValueError: A backend name not in the registry.
         """
         self.cfg = cfg or BPMFConfig()
         self.device = resolve_device(device)
@@ -121,8 +103,11 @@ class BPMFEngine:
         keys = prng.split(prng.key(self.cfg.run.seed, self.device))
         self._k_init, self._k_run = keys[0], keys[1]
 
-    def prepare(self, data: RatingsCOO) -> "BPMFEngine":
+    def prepare(self, data: RatingsCOO | ChunkedRatings) -> "BPMFEngine":
         """Host-side layout (split, center, bucket), uploaded to the device. Idempotent.
+
+        A :class:`ChunkedRatings` stream is materialized first (the per-host
+        build from chunks is ROADMAP Queue 1 item 9).
 
         Raises:
             ValueError: ``data`` differs (by shape/nnz) from the dataset
@@ -136,6 +121,8 @@ class BPMFEngine:
                     f"got different data {fingerprint} — build a new BPMFEngine"
                 )
             return self
+        if isinstance(data, ChunkedRatings):
+            data = data.materialize()
         self.backend.prepare(data)
         self._data_fingerprint = fingerprint
         return self
@@ -170,7 +157,7 @@ class BPMFEngine:
             n = min(n, run.checkpoint_every - self._sweeps_done % run.checkpoint_every)
         return max(n, 1)
 
-    def sample(self, data: RatingsCOO | None = None) -> Iterator[SweepMetrics]:
+    def sample(self, data: RatingsCOO | ChunkedRatings | None = None) -> Iterator[SweepMetrics]:
         """Stream per-sweep metrics from the current sweep to ``num_sweeps``.
 
         Resumable: after ``restore()`` the iterator continues where the
@@ -200,7 +187,7 @@ class BPMFEngine:
                 self.save()
             yield from block
 
-    def fit(self, data: RatingsCOO | None = None, resume: bool = False) -> "BPMFEngine":
+    def fit(self, data: RatingsCOO | ChunkedRatings | None = None, resume: bool = False) -> "BPMFEngine":
         """Run (or finish) all sweeps.
 
         Args:
@@ -341,10 +328,10 @@ class BPMFEngine:
             "history": hist,
             "posterior": self.backend.accum_host(self._accum),
         }
-        self._manager().save(step, _flatten(tree))
+        self._manager().save(step, _flatten(tree, self.backend.checkpoint_leaves()))
         return step
 
-    def restore(self, data: RatingsCOO | None = None, step: int | None = None) -> int:
+    def restore(self, data: RatingsCOO | ChunkedRatings | None = None, step: int | None = None) -> int:
         """Load a checkpoint and position the run loop at its sweep count.
 
         The backend must be prepared (pass ``data`` here or call
@@ -374,15 +361,15 @@ class BPMFEngine:
         step = mgr.latest() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.cfg.run.checkpoint_dir}")
-        names = [name for name, _ in _CHECKPOINT_LEAVES]
+        table = self.backend.checkpoint_leaves()
         try:
-            tree = _unflatten(mgr.restore(names, step=step))
+            tree = _unflatten(mgr.restore([name for name, _ in table], step=step), table)
             accum = self.backend.accum_from_host(tree["posterior"])
         except CheckpointSchemaError:
             # no posterior subtree: restore the rest, start the accumulator
             # empty (a genuinely damaged checkpoint raises from this restore)
-            rest = [name for name, path in _CHECKPOINT_LEAVES if path[0] != "posterior"]
-            tree = _unflatten(mgr.restore(rest, step=step))
+            rest = [name for name, path in table if path[0] != "posterior"]
+            tree = _unflatten(mgr.restore(rest, step=step), table)
             accum = self.backend.init_accum()
         self._state = self.backend.state_from_host(tree["state"])
         self._pred = self.backend.pred_from_host(tree["pred"])

@@ -13,6 +13,10 @@ it only reads and writes trees:
   (CPU tensors; ``.to(device)`` moves them);
 * :func:`to_tree` turns any of them back into a tree of numpy arrays, with
   the JAX package's dtypes (int32 counters, float32 factors);
+* :func:`merge_accum_from_tree` builds ``posterior_merge``'s
+  :class:`MergeAccum` from a ``repro.core.subset_merge.MergeAccum`` tree
+  (its per-chain states, predictions and data convert chain by chain with
+  the functions above);
 * ``dist_*_from_tree`` build the distributed sampler's per-shard
   :class:`DistState`, :class:`DistBPMFData` and :class:`DistPlan` from the
   JAX package's ring-sharded ones: each global ``[S * n, ...]`` array is
@@ -37,6 +41,7 @@ from repro_torch.core.distributed import (
     RingSide,
 )
 from repro_torch.core.prediction import PredictionState
+from repro_torch.core.subset_merge import MergeAccum
 from repro_torch.core.types import (
     BPMFData,
     BPMFState,
@@ -107,6 +112,11 @@ def accum_from_tree(tree: Mapping) -> PosteriorAccum:
         count=int(np.asarray(tree["count"])), filled=int(np.asarray(tree["filled"])),
         U_window=_t(tree["U_window"]), V_window=_t(tree["V_window"]),
     )
+
+
+def merge_accum_from_tree(tree: Mapping) -> MergeAccum:
+    """:class:`MergeAccum` from a ``repro.core.subset_merge.MergeAccum`` tree."""
+    return MergeAccum(chains=tuple(accum_from_tree(t) for t in tree["chains"]))
 
 
 def _side(tree: Mapping) -> BucketedSide:

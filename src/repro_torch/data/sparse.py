@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence
+from typing import Callable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -32,6 +32,58 @@ class RatingsCOO:
     @property
     def nnz(self) -> int:
         return int(self.rows.shape[0])
+
+    def chunked(self, chunk_rows: int = 1_000_000) -> "ChunkedRatings":
+        """This COO as a re-iterable stream of chunks of ``chunk_rows`` ratings."""
+
+        def gen() -> Iterator[RatingsCOO]:
+            for lo in range(0, max(self.nnz, 1), chunk_rows):
+                hi = min(lo + chunk_rows, self.nnz)
+                if hi > lo:
+                    yield RatingsCOO(
+                        self.rows[lo:hi], self.cols[lo:hi], self.vals[lo:hi],
+                        self.num_users, self.num_movies,
+                    )
+
+        return ChunkedRatings(
+            chunk_fn=gen, num_users=self.num_users, num_movies=self.num_movies,
+            nnz=self.nnz, chunk_rows=chunk_rows,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkedRatings:
+    """Re-iterable bounded-memory rating stream with known global dims.
+
+    ``chunk_fn`` returns a *fresh* iterator of :class:`RatingsCOO` chunks on
+    every call, in a deterministic order, with at most ``chunk_rows``
+    ratings each. The engine materializes it (the per-host build from
+    chunks is ROADMAP Queue 1 item 9).
+    """
+
+    chunk_fn: Callable[[], Iterator[RatingsCOO]]
+    num_users: int
+    num_movies: int
+    nnz: int
+    chunk_rows: int
+
+    def chunks(self) -> Iterator[RatingsCOO]:
+        return self.chunk_fn()
+
+    def materialize(self) -> RatingsCOO:
+        """Concatenate the stream into one :class:`RatingsCOO`."""
+        rows, cols, vals = [], [], []
+        for c in self.chunks():
+            rows.append(c.rows)
+            cols.append(c.cols)
+            vals.append(c.vals)
+        empty = np.zeros(0)
+        return RatingsCOO(
+            np.concatenate(rows) if rows else empty.astype(np.int32),
+            np.concatenate(cols) if cols else empty.astype(np.int32),
+            np.concatenate(vals) if vals else empty.astype(np.float32),
+            self.num_users, self.num_movies,
+        )
 
 
 def csr_from_coo(
@@ -120,24 +172,57 @@ def bucketize_side(
     return BucketedSide(buckets=tuple(buckets), num_items=num_items)
 
 
-# Block size of stable_mean: the mean is a function of fixed value-position
-# blocks, as in the JAX package's StableMeanAccumulator.
+# Block size of StableMeanAccumulator: the mean is a function of fixed
+# value-position blocks, never of the caller's chunk boundaries.
 MEAN_BLOCK = 1 << 20
+
+
+class StableMeanAccumulator:
+    """Streaming mean whose result is independent of how the values are fed.
+
+    Values are regrouped into fixed ``MEAN_BLOCK``-sized position blocks;
+    each complete block is summed with ``np.sum(..., dtype=float64)`` and
+    the block sums are combined with ``math.fsum``. Any chunking of the same
+    value sequence gives the same mean, bit for bit
+    ``repro.data.sparse.StableMeanAccumulator``'s.
+    """
+
+    def __init__(self) -> None:
+        self._buf: list[np.ndarray] = []
+        self._pending = 0
+        self._sums: list[float] = []
+        self._count = 0
+
+    def add(self, vals: np.ndarray) -> "StableMeanAccumulator":
+        vals = np.asarray(vals, dtype=np.float32)
+        self._count += len(vals)
+        self._buf.append(vals)
+        self._pending += len(vals)
+        if self._pending >= MEAN_BLOCK:
+            cat = np.concatenate(self._buf)
+            while len(cat) >= MEAN_BLOCK:
+                self._sums.append(float(np.sum(cat[:MEAN_BLOCK], dtype=np.float64)))
+                cat = cat[MEAN_BLOCK:]
+            self._buf = [cat]
+            self._pending = len(cat)
+        return self
+
+    def mean(self) -> float:
+        if not self._count:
+            return 0.0
+        sums = list(self._sums)
+        if self._pending:
+            sums.append(float(np.sum(np.concatenate(self._buf), dtype=np.float64)))
+        return math.fsum(sums) / self._count
 
 
 def stable_mean(vals: np.ndarray) -> float:
     """The training mean that ``build_distributed_data`` centers on.
 
-    Each ``MEAN_BLOCK`` block of the float32 values is summed with
-    ``np.sum(..., dtype=float64)`` and the block sums are combined with
-    ``math.fsum``: bitwise ``repro.data.sparse.stable_mean``.
+    Chunking-invariant (:class:`StableMeanAccumulator`): bitwise
+    ``repro.data.sparse.stable_mean``.
     """
-    vals = np.asarray(vals, dtype=np.float32)
-    if not len(vals):
-        return 0.0
-    sums = [float(np.sum(vals[i : i + MEAN_BLOCK], dtype=np.float64))
-            for i in range(0, len(vals), MEAN_BLOCK)]
-    return math.fsum(sums) / len(vals)
+    return StableMeanAccumulator().add(vals).mean()
 
 
 def train_test_split(
@@ -168,10 +253,39 @@ def build_bpmf_data(
     train, test = train_test_split(coo, test_fraction, seed)
     lo = float(coo.vals.min()) if min_rating is None else min_rating
     hi = float(coo.vals.max()) if max_rating is None else max_rating
-    mean = float(train.vals.mean()) if train.nnz else 0.0
+    return build_bpmf_data_presplit(train, test, pads, min_rating=lo, max_rating=hi)
+
+
+def build_bpmf_data_presplit(
+    train: RatingsCOO,
+    test: RatingsCOO,
+    pads: Sequence[int] = (8, 32, 128, 512, 2048),
+    mean_rating: float | None = None,
+    min_rating: float | None = None,
+    max_rating: float | None = None,
+) -> BPMFData:
+    """Center and bucket an already-split (train, test) pair.
+
+    The split-free tail of :func:`build_bpmf_data`, for callers that
+    partition the ratings *after* one global split: the ``posterior_merge``
+    backend gives each chain a user subset of it, centered and clipped
+    globally (pass the global ``mean_rating`` / ``min_rating`` /
+    ``max_rating``; by default they derive from the pair given).
+    """
+    mean = (
+        (float(train.vals.mean()) if train.nnz else 0.0)
+        if mean_rating is None
+        else float(mean_rating)
+    )
     centered = train.vals - mean
     u_indptr, u_idx, u_val = csr_from_coo(train.rows, train.cols, centered, train.num_users)
     m_indptr, m_idx, m_val = csr_from_coo(train.cols, train.rows, centered, train.num_movies)
+
+    all_vals = np.concatenate([train.vals, test.vals]) if train.nnz or test.nnz else None
+    lo = (float(all_vals.min()) if all_vals is not None else -np.inf) \
+        if min_rating is None else min_rating
+    hi = (float(all_vals.max()) if all_vals is not None else np.inf) \
+        if max_rating is None else max_rating
     return BPMFData(
         users=bucketize_side(u_indptr, u_idx, u_val, pads),
         movies=bucketize_side(m_indptr, m_idx, m_val, pads),

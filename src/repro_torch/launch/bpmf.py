@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.bpmf --dataset synthetic --sweeps 20
     PYTHONPATH=src python -m repro_torch.launch.bpmf --device cpu --K 8 --sweeps 5
     PYTHONPATH=src python -m repro_torch.launch.bpmf --device cpu --backend ring --num-shards 2
+    PYTHONPATH=src python -m repro_torch.launch.bpmf --device cpu --backend posterior_merge --num-partitions 2
+    PYTHONPATH=src python -m repro_torch.launch.bpmf --dataset movielens --dataset-path ratings.csv
     PYTHONPATH=src python -m repro_torch.launch.bpmf --device cpu --checkpoint-dir /tmp/ck --checkpoint-every 2
     PYTHONPATH=src python -m repro_torch.launch.bpmf --device cpu --checkpoint-dir /tmp/ck --resume \
         --export-artifact /tmp/art
@@ -17,7 +19,8 @@ cpu`` is given, and exits with an error when there is no GPU and no CPU
 request. The flags are those of ``python -m repro.launch.bpmf`` that this
 port runs, with the same names and defaults, plus ``--device``.
 The ring backends put shard d on card ``d % n`` of the n visible cards, so
-``--num-shards 4`` on one card runs all four shards there.
+``--num-shards 4`` on one card runs all four shards there; ``posterior_merge``
+places its chains the same way.
 """
 from __future__ import annotations
 
@@ -32,8 +35,11 @@ def build_parser() -> argparse.ArgumentParser:
         description="Run BPMF Gibbs sampling through the repro_torch engine.",
     )
     p.add_argument("--backend", default="sequential",
-                   help="sequential | ring | ring_async | allgather (registry name)")
-    p.add_argument("--dataset", default="synthetic", help="synthetic (registry name)")
+                   help="sequential | ring | ring_async | allgather | "
+                        "posterior_merge (registry name)")
+    p.add_argument("--dataset", default="synthetic",
+                   help="synthetic | movielens | chembl (registry name)")
+    p.add_argument("--dataset-path", default=None, help="file for movielens/chembl loaders")
     p.add_argument("--users", type=int, default=400, help="synthetic: number of users")
     p.add_argument("--movies", type=int, default=300, help="synthetic: number of movies")
     p.add_argument("--nnz", type=int, default=12_000, help="synthetic: number of ratings")
@@ -48,6 +54,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="distributed shard count (0 = one per visible card; one on the CPU)")
     p.add_argument("--pipeline-depth", type=int, default=1,
                    help="ring_async: ring rotations kept in flight (d >= 1)")
+    p.add_argument("--num-partitions", type=int, default=0,
+                   help="posterior_merge: independent partition chains "
+                        "(0 = one per visible card; one on the CPU)")
+    p.add_argument("--merge-method", default="precision", choices=["precision", "pool"],
+                   help="posterior_merge: subset-posterior combination "
+                        "(precision-weighted Gaussian product or uniform pooling)")
     p.add_argument("--gram-impl", default="auto",
                    choices=["auto", "pallas_fused", "pallas", "xla"],
                    help="Gram dispatch: auto/pallas/pallas_fused = the CUDA kernel "
@@ -76,11 +88,15 @@ def main(argv: list[str] | None = None) -> int:
     dataset_kw = {}
     if args.dataset == "synthetic":
         dataset_kw = dict(num_users=args.users, num_movies=args.movies, nnz=args.nnz)
+    elif args.dataset_path:
+        dataset_kw = dict(path=args.dataset_path)
     coo = load_dataset(args.dataset, **dataset_kw)
     cfg = BPMFConfig().replace(
         name=args.backend,
         num_shards=args.num_shards,
         pipeline_depth=args.pipeline_depth,
+        num_partitions=args.num_partitions,
+        merge_method=args.merge_method,
         gram_impl=args.gram_impl,
         K=args.K,
         alpha=args.alpha,
@@ -98,7 +114,11 @@ def main(argv: list[str] | None = None) -> int:
     if args.resume:
         resumed_at = engine.restore()
         print(f"resumed from checkpoint at sweep {resumed_at}")
-    shards = f" shards={engine.backend.num_shards}" if hasattr(engine.backend, "num_shards") else ""
+    shards = ""
+    if hasattr(engine.backend, "num_shards"):
+        shards = f" shards={engine.backend.num_shards}"
+    elif hasattr(engine.backend, "num_partitions"):
+        shards = f" partitions={engine.backend.num_partitions}"
     print(
         f"backend={args.backend}{shards} device={engine.device} dataset={args.dataset} "
         f"R: {coo.num_users} x {coo.num_movies}, {coo.nnz} ratings; "

@@ -1,8 +1,9 @@
 """The port's checkpoints and artifacts against the JAX package's, in both directions.
 
 At test_engine.py's small shapes (90 x 45, nnz 1000, K=6, burn-in 1, pads
-(8, 32, 128)), for ``sequential`` in this process and for a 2-shard
-``ring`` in one subprocess with two host devices:
+(8, 32, 128)), for ``sequential`` and a 2-chain ``posterior_merge`` in
+this process and for a 2-shard ``ring`` in one subprocess with two host
+devices:
 
 * a checkpoint ``repro`` writes at sweep 3 restores in the port, and the
   port's re-save of it is the reference's files byte for byte (every
@@ -15,9 +16,10 @@ At test_engine.py's small shapes (90 x 45, nnz 1000, K=6, burn-in 1, pads
 * an artifact ``repro`` exports serves from the port (1e-6, equal top-k
   ids), and one the port exports loads in ``repro``.
 
-Then the port alone: save / restore in a fresh engine resumes bit for bit,
-``checkpoint_every`` auto-saves, retention, the pre-serving checkpoint
-fallback, sharded leaves written by a multi-process JAX job, and the typed
+Then the port alone: save / restore in a fresh engine resumes bit for bit
+(a resumed ``posterior_merge`` run exports the uninterrupted run's merged
+artifact), ``checkpoint_every`` auto-saves, retention, the pre-serving
+checkpoint fallback (also per chain), sharded leaves written by a multi-process JAX job, and the typed
 errors of damaged checkpoints and artifacts.
 """
 import dataclasses
@@ -65,8 +67,8 @@ TASK = dict(num_users=90, num_movies=45, nnz=1000, noise_std=0.3, seed=5)
 
 
 def _cfg(name="sequential", **kw) -> BPMFConfig:
-    shards = {"num_shards": 2} if name != "sequential" else {}
-    return BPMFConfig().replace(name=name, **shards, **{**CFG, **kw})
+    layouts = {"sequential": {}, "posterior_merge": {"num_partitions": 2}}
+    return BPMFConfig().replace(name=name, **layouts.get(name, {"num_shards": 2}), **{**CFG, **kw})
 
 
 def _coo():
@@ -147,6 +149,71 @@ def test_port_continues_reference_checkpoint_with_gamma_seam(jax_seq, monkeypatc
     np.testing.assert_allclose(_hist(port), _hist(ref), rtol=0, atol=1e-4)
     for got, want in zip(port.factors(), ref.factors()):
         np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-3)
+
+
+# ---------- posterior_merge, P = 2, both packages in this process ----------
+
+
+def _jmerge_cfg(**kw):
+    return jbpmf.BPMFConfig().replace(name="posterior_merge", num_partitions=2, **CFG, **kw)
+
+
+@pytest.fixture(scope="module")
+def jax_merge(tmp_path_factory):
+    """The reference's 2-chain run, saving at 3 and 6."""
+    d = tmp_path_factory.mktemp("jax_merge")
+    engine = jbpmf.BPMFEngine(_jmerge_cfg(checkpoint_dir=str(d / "ckpt"), checkpoint_every=3)).fit(
+        jbpmf.load_dataset("synthetic", **TASK))
+    engine._manager().wait()
+    return engine, str(d / "ckpt")
+
+
+def test_merge_reference_checkpoint_restores_in_port_leaf_for_leaf(jax_merge, tmp_path):
+    ref, ckpt = jax_merge
+    port = BPMFEngine(_cfg("posterior_merge", checkpoint_dir=ckpt), device="cpu")
+    assert port.restore(_coo(), step=3) == 3
+    np.testing.assert_array_equal(_hist(port), _hist(ref)[:3])
+    with open(os.path.join(ckpt, "step_00000003", "manifest.json")) as f:
+        names = [leaf["name"] for leaf in json.load(f)["leaves"]]
+    assert names == [name for name, _ in port.backend.checkpoint_leaves()]
+    assert "posterior__chain_001__V_sum" in names and "state__1__.hyper_V__.Lam" in names
+    _resave_copy(ckpt, str(tmp_path / "port"), lambda d: BPMFEngine(
+        _cfg("posterior_merge", checkpoint_dir=d), device="cpu").prepare(_coo()))
+
+
+def test_merge_port_checkpoint_restores_in_reference(tmp_path):
+    port = _port_to_step(_cfg("posterior_merge", checkpoint_dir=str(tmp_path / "port")), 3)
+    jcoo = jbpmf.load_dataset("synthetic", **TASK)
+    ref = jbpmf.BPMFEngine(_jmerge_cfg(checkpoint_dir=str(tmp_path / "port")))
+    assert ref.restore(jcoo) == 3
+    np.testing.assert_array_equal(_hist(ref), _hist(port))
+    for got, want in zip(ref.state, port.state):
+        np.testing.assert_array_equal(np.asarray(got.U), want.U.numpy())
+    _resave_copy(str(tmp_path / "port"), str(tmp_path / "ref"),
+                 lambda d: jbpmf.BPMFEngine(_jmerge_cfg(checkpoint_dir=d)).prepare(jcoo))
+
+
+def test_merge_checkpoint_every_resume_and_pre_serving_fallback(tmp_path):
+    """Auto-saves, ``fit(resume=True)`` and a checkpoint without the posterior subtree."""
+    cfg = _cfg("posterior_merge", num_sweeps=4, sweeps_per_block=3, checkpoint_dir=str(tmp_path / "ckpt"),
+               checkpoint_every=2, async_checkpoint_writes=False)
+    full = BPMFEngine(cfg, device="cpu").fit(_coo())
+    assert full._manager().all_steps() == [2, 4]
+    again = BPMFEngine(cfg, device="cpu").prepare(_coo())
+    again.fit(resume=True)
+    assert again.num_sweeps_done == 4 and again.history == full.history
+
+    step_dir = tmp_path / "ckpt" / "step_00000002"
+    manifest = json.loads((step_dir / "manifest.json").read_text())
+    manifest["leaves"] = [leaf for leaf in manifest["leaves"] if not leaf["name"].startswith("posterior")]
+    (step_dir / "manifest.json").write_text(json.dumps(manifest))
+    resumed = BPMFEngine(cfg.replace(checkpoint_every=0), device="cpu")
+    assert resumed.restore(_coo(), step=2) == 2
+    resumed.fit()
+    assert resumed.history == full.history  # the samples do not depend on the accumulator
+    meta, arrays = load_artifact(resumed.export(str(tmp_path / "art")))
+    assert meta.num_mean_samples == 2 and meta.backend == "posterior_merge"  # sweeps 3..4 only
+    assert np.all(np.isfinite(arrays["U_mean"]))
 
 
 # ---------- ring, S = 2: the reference runs in one subprocess with two host devices ----------
@@ -235,7 +302,7 @@ def test_port_artifact_loads_in_reference(tmp_path):
 # ---------- the port's own round trip ----------
 
 
-@pytest.mark.parametrize("name", ["sequential", "ring", "ring_async"])
+@pytest.mark.parametrize("name", ["sequential", "ring", "ring_async", "posterior_merge"])
 def test_checkpoint_roundtrip_resumes_identically(tmp_path, name):
     """save() mid-run, restore() in a fresh engine: the metrics, factors and artifact are identical."""
     extra = {"pipeline_depth": 2} if name == "ring_async" else {}

@@ -29,7 +29,7 @@ from repro.data.sparse import build_bpmf_data as j_build
 from repro.serve import ArtifactMeta as JArtifactMeta
 from repro.serve import PosteriorPredictor as JPredictor
 from repro_torch import convert
-from repro_torch.bpmf import BPMFConfig, BPMFEngine, load_dataset
+from repro_torch.bpmf import BPMFConfig, BPMFEngine, available_backends, load_dataset
 from repro_torch.core import prng
 from repro_torch.launch import bpmf as cli
 
@@ -158,10 +158,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_features_raise_naming_the_roadmap_item():
-    for name in ("ring", "ring_async", "allgather"):  # ported: they construct
+    # ported: every backend of the JAX package's registry constructs
+    for name in ("ring", "ring_async", "allgather", "posterior_merge"):
         assert BPMFEngine(BPMFConfig().replace(name=name), device="cpu").backend.name == name
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        BPMFEngine(BPMFConfig().replace(name="posterior_merge"), device="cpu")
+    assert available_backends() == ["allgather", "posterior_merge", "ring", "ring_async", "sequential"]
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         BPMFConfig().replace(pipeline_blocks=2)
     # checkpoints and export are ported (Queue 1 items 5 and 6): an engine
@@ -193,6 +193,17 @@ def test_cli_runs_on_cpu(capsys):
     assert "device=cpu" in out and out.count("sweep ") == 3 and "final rmse(avg)=" in out
 
 
+def test_cli_runs_posterior_merge_on_cpu(capsys):
+    assert cli.main([
+        "--device", "cpu", "--backend", "posterior_merge", "--num-partitions", "2",
+        "--merge-method", "pool", "--sweeps", "3", "--burn-in", "1", "--K", "4",
+        "--users", "60", "--movies", "30", "--nnz", "600",
+    ]) == 0
+    out = capsys.readouterr().out
+    assert "backend=posterior_merge partitions=2 device=cpu" in out
+    assert out.count("sweep ") == 3 and "final rmse(avg)=" in out
+
+
 def _imported_roots(path: Path) -> set[str]:
     roots = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -206,6 +217,8 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    assert {"src/repro_torch/core/subset_merge.py", "src/repro_torch/data/movielens.py"} <= {
+        f.relative_to(ROOT).as_posix() for f in files}
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
