@@ -21,7 +21,10 @@ Phases (any failure stops the run with a non-zero exit and no result line):
 4. the sequential sampler at MovieLens-20M scale (138,493 x 27,278, 20 M
    ratings, K = 32, default pads) through ``BPMFEngine``: 4 sweeps, with the
    launch counters reset just before and read just after (one launch per
-   bucket, and one second pass per bucket that is split); then every bucket
+   bucket, and one second pass per bucket that is split, for each of the 4
+   sweeps and the one eager warm-up sweep that precedes the capture: every
+   sampler below runs its blocks as its captured sweep replayed, a CUDA
+   graph, and the counters count each replay's launches); then every bucket
    of that data held against the plain version and timed beside
    ``torch.bmm`` on its pre-gathered block, with its milliseconds per
    million real ratings; then the fused kernel on the movies side's buckets
@@ -29,11 +32,23 @@ Phases (any failure stops the run with a non-zero exit and no result line):
    ring (it holds the P = 131,072 class);
    The run saves a checkpoint at sweep 2 (asynchronously; the block's
    time excludes the save and its write);
+   ``graph_sweeps``: the same 4 sweeps eagerly (``_eager=True``) from the
+   same start, in blocks of 2; every metrics row and every tensor of the
+   carry (U, V, hyper-parameters, counters, accumulators) must equal the
+   replayed run's bit for bit, and an eager sweep's Gram launches the
+   graph's per replay; capture seconds, captured and eager s/sweep,
+   replays and kernel launches per sweep, each one's device kernel time
+   and busy share (one replayed and one eager sweep under torch.profiler)
+   and peak memory; then ``no_host_read``: one eager block of 2 sweeps
+   under ``torch.cuda.set_sync_debug_mode("error")``, which must complete;
 5. ``ml20m_checkpoint``: ``restore(step=2)`` on the same engine and sweeps
    3-4 again, with the counters reset just before and read just after;
    every ``SweepMetrics`` and both factor matrices must equal the first
    pass bit for bit; the checkpoint's bytes on disk and the ms of the async
-   ``save``, of ``wait()`` and of ``restore``;
+   ``save``, of ``wait()`` and of ``restore``; then ``pipeline``: the same
+   engine resumed from sweep 2 twice more, in blocks of one sweep at
+   ``pipeline_blocks`` 1 and 2, each bit for bit the first pass, with the
+   host's blocked seconds of each;
 6. requests: ``predict`` with ``return_std`` and ``top_k`` on the posterior,
    checked against numpy; then ``serve``: the ML20M artifact exported and
    loaded with ``PosteriorPredictor.load(..., device="cuda")`` answers bit
@@ -48,8 +63,11 @@ Phases (any failure stops the run with a non-zero exit and no result line):
    shards, all on this one card, through ``BPMFEngine``, 4 sweeps in blocks
    of 2 with the counters reset just before and read just after; each
    sweep's RMSE held to the sequential phase's, saving at sweep 2 as the
-   sequential run does; ``ring_checkpoint``, as ``ml20m_checkpoint`` (the
-   save holds the shards concatenated, ``[S * cap, K]``); then
+   sequential run does; ``graph_sweeps`` and ``no_host_read`` as for the
+   sequential sampler (``no_host_read`` for the ``ring``, ``ring_async``
+   and ``allgather`` comm modes); ``ring_checkpoint``, as
+   ``ml20m_checkpoint`` (the save holds the shards concatenated,
+   ``[S * cap, K]``); then
    ``ring_async`` (depth 2) and ``allgather`` for 2 sweeps from the same
    start, held to the ring's state; one traced ring sweep; and every
    (side, step, shard) layout of a sweep held against the fused kernel's
@@ -61,8 +79,9 @@ Phases (any failure stops the run with a non-zero exit and no result line):
    every chain, and one second pass per split bucket); the host build
    seconds, seconds per sweep, peak memory and each chain's users, ratings
    and largest pads; the combined RMSE finite and falling from sweep 1 to
-   4; ``merge_checkpoint``, as ``ml20m_checkpoint`` (every chain's U and V
-   too); ``merge_export``: the merged artifact loaded on the card answers
+   4; ``graph_sweeps`` and ``no_host_read`` as above (all 4 chains and the
+   metrics' combination are one graph); ``merge_checkpoint``, as
+   ``ml20m_checkpoint`` (every chain's U and V too); ``merge_export``: the merged artifact loaded on the card answers
    32 ``predict`` pairs with std and ``top_k(user, 10)`` bit for bit as
    ``engine.predictor()``, and its held-out RMSE stays within
    ``MERGE_DEGRADATION_MAX[4]`` of the sequential artifact's at the same
@@ -418,6 +437,8 @@ def timed_save(engine) -> dict:
 
 
 def phase_ml20m(torch, gram_kernel, repro_torch_mods, ckpt_root: Path) -> dict:
+    from repro_torch.core import sweep_graph
+
     BPMFConfig, BPMFEngine, ML20M_LIKE, synthetic_ratings = repro_torch_mods
     t0 = time.perf_counter()
     coo, _ = synthetic_ratings(ML20M_LIKE)
@@ -458,8 +479,11 @@ def phase_ml20m(torch, gram_kernel, repro_torch_mods, ckpt_root: Path) -> dict:
     peak = torch.cuda.max_memory_allocated()
 
     rmse = [[m.rmse_sample, m.rmse_avg] for m in engine.history]
+    # the first block captures the sweep, after one eager warm-up sweep
+    swept = engine.num_sweeps_done + sweep_graph.WARMUP_SWEEPS
     print(json.dumps({
         "phase": "ml20m_sweeps", "sweeps": engine.num_sweeps_done,
+        "warmup_sweeps": sweep_graph.WARMUP_SWEEPS, "graph_replays": engine.backend.graph.replays,
         "seconds_per_sweep_by_block": [s / cfg.run.sweeps_per_block for s in block_s],
         "rmse_sample_avg": rmse, "launches": launches, "reduce_launches": reduce_launches,
         "plain_calls": plain_calls, "buckets_per_sweep": n_buckets,
@@ -469,12 +493,12 @@ def phase_ml20m(torch, gram_kernel, repro_torch_mods, ckpt_root: Path) -> dict:
         raise AssertionError(f"non-finite RMSE at ML20M scale: {rmse}")
     if not rmse[-1][0] < rmse[0][0]:
         raise AssertionError(f"RMSE did not fall from sweep 1 to sweep 4: {rmse}")
-    if launches != n_buckets * engine.num_sweeps_done:
-        raise AssertionError(f"{launches} kernel launches, want {n_buckets} buckets x "
-                             f"{engine.num_sweeps_done} sweeps")
-    if reduce_launches != split_buckets * engine.num_sweeps_done:
+    if launches != n_buckets * swept:
+        raise AssertionError(f"{launches} kernel launches, want {n_buckets} buckets x {swept} sweeps "
+                             "(the run's and the capture's warm-up)")
+    if reduce_launches != split_buckets * swept:
         raise AssertionError(f"{reduce_launches} second passes, want {split_buckets} split buckets x "
-                             f"{engine.num_sweeps_done} sweeps")
+                             f"{swept} sweeps")
     if plain_calls != 0:
         raise AssertionError(f"the main path ran the plain Gram version {plain_calls} times")
 
@@ -525,7 +549,7 @@ def phase_ml20m(torch, gram_kernel, repro_torch_mods, ckpt_root: Path) -> dict:
     }
     print(json.dumps({k: v for k, v in per_sweep.items() if k != "buckets"}), flush=True)
     return {"engine": engine, "launches": launches, "reduce_launches": reduce_launches, "gram": per_sweep,
-            "coo": coo, "cfg": cfg, "save": save,
+            "coo": coo, "cfg": cfg, "save": save, "peak": peak,
             "expected_per_sweep": {"LAUNCHES": n_buckets, "REDUCE_LAUNCHES": split_buckets},
             "steady_sweep_s": block_s[-1] / cfg.run.sweeps_per_block,
             "rmse_sample": [m.rmse_sample for m in engine.history]}
@@ -576,19 +600,18 @@ def phase_requests(torch, np, engine) -> None:
                       "top_k_users": users, "top_k_ms": topk_ms}), flush=True)
 
 
-def phase_profile(torch, engine, steady_sweep_s: float, label: str = "profile_one_sweep") -> None:
-    """One more ML20M sweep under torch.profiler (CUDA activity only).
+def profile_sweep(torch, backend, key, carry, eager: bool) -> dict:
+    """One sweep of ``carry`` under torch.profiler (CUDA activity only): kernel ms by name, launches.
 
-    Prints device time by kernel and the number of kernel launches. The
-    device's busy share is the summed kernel time over the steady sweep's
-    wall time measured without the profiler (``steady_sweep_s``), since the
-    profiler's own cost inflates the wall time of the traced sweep.
+    The sweep is the replayed graph, or with ``eager`` the op-by-op loop.
+    Also the sweep's span on the card by CUDA events (for a replay: the
+    graph's kernels and the gaps between them).
     """
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        engine.backend.sweep_block(engine._k_run, engine.state, engine._pred, engine._accum, 1)
+        backend.sweep_block(key, *carry, 1, _eager=eager)
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
@@ -599,17 +622,165 @@ def phase_profile(torch, engine, steady_sweep_s: float, label: str = "profile_on
             dev_us = ev.self_cuda_time_total
         rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
+    span_ms = time_ms(torch, lambda: backend.sweep_block(key, *carry, 1, _eager=eager), 3, warmup=0)
+    return {"device_kernel_ms": sum(r[0] for r in rows), "kernel_launches": sum(r[1] for r in rows),
+            "event_span_ms": span_ms,
+            "top_kernels_ms_count": [[round(ms, 4), n, name[:100]] for ms, n, name in rows[:15]]}
+
+
+def phase_profile(torch, engine, steady_sweep_s: float, label: str = "profile_one_sweep") -> None:
+    """One more ML20M sweep under torch.profiler: on the card, a replay of the captured sweep.
+
+    Prints device time by kernel and the number of kernel launches. The
+    device's busy share is the summed kernel time over the steady sweep's
+    wall time measured without the profiler (``steady_sweep_s``), since the
+    profiler's own cost inflates the wall time of the traced sweep.
+    """
+    prof = profile_sweep(torch, engine.backend, engine._k_run, (engine.state, engine._pred, engine._accum),
+                         eager=False)
     print(json.dumps({
-        "phase": label, "device_kernel_ms": busy_ms,
-        "kernel_launches": sum(r[1] for r in rows), "steady_sweep_ms": 1e3 * steady_sweep_s,
-        "busy_share": busy_ms / (1e3 * steady_sweep_s),
-        "top_kernels_ms_count": [[round(ms, 4), n, name[:100]] for ms, n, name in rows[:15]],
+        "phase": label, "device_kernel_ms": prof["device_kernel_ms"],
+        "kernel_launches": prof["kernel_launches"], "steady_sweep_ms": 1e3 * steady_sweep_s,
+        "busy_share": prof["device_kernel_ms"] / (1e3 * steady_sweep_s),
+        "replay_event_span_ms": prof["event_span_ms"], "top_kernels_ms_count": prof["top_kernels_ms_count"],
     }), flush=True)
+
+
+def phase_graph_sweeps(torch, engine, run: dict, label: str, card: str, dist=None) -> None:
+    """The run's captured sweeps against the eager loop from the same start, then ``no_host_read``.
+
+    Runs right after the engine's 4 sweeps, whose carry (the graph's static
+    buffers) holds sweep 4. Four eager sweeps (blocks of 2) from the
+    initial carry must give every metrics row and every tensor of the
+    carry (U and V, hyper-parameters, counters, prediction and posterior
+    accumulators) bit for bit, and the Gram launches of an eager sweep must
+    equal the graph's per replay. Prints capture seconds, captured and eager
+    s/sweep (the second block of each), replays and kernel launches per
+    sweep, each sweep's device kernel time and busy share (profiled: one
+    replayed and one eager sweep), and peak memory. The engine's carry is
+    put back afterwards. Then one eager block of each backend (and, for a
+    ring, of each comm mode) under ``set_sync_debug_mode("error")``.
+    """
+    from repro_torch.core import sweep_graph
+
+    b = engine.backend
+    graph = b.graph
+    key = engine._k_run
+    captured = (engine._state, engine._pred, engine._accum)
+    saved = sweep_graph.map_tensors(captured, torch.clone)
+    captured_rows = [list(m) for m in engine.history]
+    carry = (b.init_state(engine._k_init), b.init_pred(), b.init_accum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, block_s, counts = [], [], []
+    for n in (2, 2):
+        before = sweep_graph.launch_counts()
+        t0 = time.perf_counter()
+        *carry, r = b.sweep_block(key, *carry, n, _eager=True)
+        rows += r.cpu().numpy().tolist()
+        block_s.append(time.perf_counter() - t0)
+        counts.append({k: (v - before[k]) // n for k, v in sweep_graph.launch_counts().items()})
+    eager_peak = torch.cuda.max_memory_allocated()
+    carry = tuple(carry)
+    same_rows = [r[:3] for r in rows] == captured_rows and not any(r[3] for r in rows)
+    pairs = list(zip(sweep_graph.tensors(carry), sweep_graph.tensors(saved)))
+    same_tensors = len(pairs) == len(sweep_graph.tensors(saved)) and all(torch.equal(x, y) for x, y in pairs)
+    U_e, V_e = b.factors(carry[0])
+    U_g, V_g = b.factors(saved[0])
+    same_uv = bool((U_e == U_g).all() and (V_e == V_g).all())
+    replayed = profile_sweep(torch, b, key, sweep_graph.map_tensors(saved, torch.clone), eager=False)
+    eager = profile_sweep(torch, b, key, sweep_graph.map_tensors(carry, torch.clone), eager=True)
+    for dst, src in zip(sweep_graph.tensors(captured), sweep_graph.tensors(saved)):
+        dst.copy_(src)  # the engine's carry as it was: the profiles replayed over it
+    captured_s, eager_s = run["steady_sweep_s"], block_s[-1] / 2
+    line = {
+        "phase": "graph_sweeps", "backend": label, "card": card, "sweeps": len(rows),
+        "bit_identical": {"metrics": same_rows, "every_carry_tensor": same_tensors, "U_V": same_uv},
+        "capture_seconds": graph.capture_seconds, "warmup_seconds": graph.warmup_seconds,
+        "captured_s_per_sweep": captured_s, "eager_s_per_sweep": eager_s,
+        "graph_replays_per_sweep": 1, "graph_replays": graph.replays,
+        "gram_launches_per_replay": graph.launches_per_replay, "gram_launches_per_eager_sweep": counts[-1],
+        "kernel_launches_per_sweep": {"captured": replayed["kernel_launches"], "eager": eager["kernel_launches"]},
+        "device_kernel_ms_per_sweep": {"captured": replayed["device_kernel_ms"],
+                                       "eager": eager["device_kernel_ms"]},
+        "busy_share": {"captured": replayed["device_kernel_ms"] / (1e3 * captured_s),
+                       "eager": eager["device_kernel_ms"] / (1e3 * eager_s)},
+        "replay_event_span_ms": replayed["event_span_ms"],
+        "max_memory_allocated_bytes": {"captured_run": run["peak"], "eager_sweeps": eager_peak},
+        "top_kernels_captured": replayed["top_kernels_ms_count"][:8],
+    }
+    print(json.dumps(line), flush=True)
+    if not all(line["bit_identical"].values()):
+        raise AssertionError(f"{label}: the captured sweeps differ from the eager ones: {line['bit_identical']}")
+    if any(c != graph.launches_per_replay for c in counts):
+        raise AssertionError(f"{label}: Gram launches per eager sweep {counts}, per replay "
+                             f"{graph.launches_per_replay}")
+
+    # no host read inside an eager block: a sync would raise
+    modes = [None] if dist is None else ["ring", "ring_async", "allgather"]
+    for mode in modes:
+        start = (b.init_state(engine._k_init), b.init_pred(), b.init_accum())
+        if mode is None:
+            def block(c=start):
+                return b.sweep_block(key, *c, 2, _eager=True)
+        else:
+            mcfg = dataclasses.replace(b.core_cfg, comm_mode=mode, pipeline_depth=2)
+
+            def block(c=start, mcfg=mcfg):
+                return dist.dist_gibbs_sweep_block(key, *c, b.data, mcfg, b.ring, 2, b.prior)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = block()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        finite = bool(torch.isfinite(out[3]).all())
+        print(json.dumps({"phase": "no_host_read", "backend": label, "comm_mode": mode, "sweeps": 2,
+                          "completed": True, "seconds": secs, "finite_metrics": finite}), flush=True)
+        if not finite:
+            raise AssertionError(f"{label} {mode}: the eager block under the sync check gave {out[3]}")
+        del out, start
+
+
+def phase_pipeline(torch, engine, card: str) -> None:
+    """The sequential sampler at ``pipeline_blocks`` 1 and 2: the same history, bit for bit.
+
+    The ML20M engine again, resumed from its sweep-2 checkpoint with blocks
+    of one sweep and its queue depth set to 1, then 2; each pass must give
+    the first run's history and factors. Prints ``host_blocked_s`` and the
+    metrics bytes read for each.
+    """
+    first, (U0, V0), cfg0 = list(engine.history), engine.factors(), engine.cfg
+    line = {"phase": "pipeline", "card": card, "resumed_from": CHECKPOINT_AT}
+    try:
+        for depth in (1, 2):
+            engine.cfg = cfg0.replace(pipeline_blocks=depth, sweeps_per_block=1)
+            engine.restore(step=CHECKPOINT_AT)
+            blocked, nbytes = engine.host_blocked_s, engine.host_metric_bytes
+            t0 = time.perf_counter()
+            list(engine.sample())
+            U, V = engine.factors()
+            line[f"depth_{depth}"] = {
+                "host_blocked_s": engine.host_blocked_s - blocked,
+                "host_metric_bytes": engine.host_metric_bytes - nbytes,
+                "wall_s": time.perf_counter() - t0,
+                "history_bit_identical": engine.history == first,
+                "U_V_bit_identical": bool((U == U0).all() and (V == V0).all()),
+            }
+    finally:
+        engine.cfg = cfg0
+    print(json.dumps(line), flush=True)
+    if not all(line[f"depth_{d}"][k] for d in (1, 2) for k in ("history_bit_identical", "U_V_bit_identical")):
+        raise AssertionError(f"pipeline_blocks 1 and 2 differ from the first run: {line}")
 
 
 def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict, ckpt_root: Path) -> dict:
     """The 4-shard ring at ML20M on this card, its async and allgather variants, and its kernel."""
+    from repro_torch.core import sweep_graph
+
     cfg = ml["cfg"].replace(name="ring", num_shards=RING_SHARDS, checkpoint_dir=str(ckpt_root / "ring"))
     engine = BPMFEngine(cfg)
     engine.prepare(ml["coo"])
@@ -635,8 +806,8 @@ def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict, ckpt_root: Path) 
         if m.sweep % cfg.run.sweeps_per_block == 0:
             now = time.perf_counter()
             block_s.append(now - t_prev)
-            if after_block1 is None:
-                after_block1 = engine.state
+            if after_block1 is None:  # the graph's buffers, which block 2 overwrites: copy
+                after_block1 = sweep_graph.map_tensors(engine.state, torch.clone)
             if m.sweep == CHECKPOINT_AT:
                 save = timed_save(engine)  # not charged to the next block
                 now = time.perf_counter()
@@ -645,20 +816,22 @@ def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict, ckpt_root: Path) 
     peak = torch.cuda.max_memory_allocated()
     rmse = [m.rmse_sample for m in engine.history]
     gap = [abs(a - b_) for a, b_ in zip(rmse, ml["rmse_sample"])]
+    swept = engine.num_sweeps_done + sweep_graph.WARMUP_SWEEPS  # the capture's warm-up too
     print(json.dumps({
         "phase": "ring_sweeps", "sweeps": engine.num_sweeps_done,
+        "warmup_sweeps": sweep_graph.WARMUP_SWEEPS, "graph_replays": b.graph.replays,
         "seconds_per_sweep_by_block": [s_ / cfg.run.sweeps_per_block for s_ in block_s],
         "rmse_sample": rmse, "rmse_avg": [m.rmse_avg for m in engine.history],
         "sequential_rmse_sample": ml["rmse_sample"], "rmse_gap_to_sequential": gap,
-        "counts": counts, "expected_fused_launches": expected_per_sweep * engine.num_sweeps_done,
+        "counts": counts, "expected_fused_launches": expected_per_sweep * swept,
         "max_memory_allocated_bytes": peak,
     }), flush=True)
-    if counts["FUSED_LAUNCHES"] != expected_per_sweep * engine.num_sweeps_done:
+    if counts["FUSED_LAUNCHES"] != expected_per_sweep * swept:
         raise AssertionError(f"{counts['FUSED_LAUNCHES']} fused launches, want {expected_per_sweep} "
-                             f"per sweep x {engine.num_sweeps_done} sweeps")
-    if counts["FUSED_REDUCE_LAUNCHES"] != split_layouts * engine.num_sweeps_done:
+                             f"per sweep x {swept} sweeps")
+    if counts["FUSED_REDUCE_LAUNCHES"] != split_layouts * swept:
         raise AssertionError(f"{counts['FUSED_REDUCE_LAUNCHES']} fused second passes, want {split_layouts} "
-                             f"per sweep x {engine.num_sweeps_done} sweeps")
+                             f"per sweep x {swept} sweeps")
     if counts["PLAIN_CALLS"] or counts["FUSED_PLAIN_CALLS"] or counts["LAUNCHES"] or counts["REDUCE_LAUNCHES"]:
         raise AssertionError(f"the ring ran something other than the fused kernel: {counts}")
     if not all(math.isfinite(v) for v in rmse) or max(gap) > 1e-3:
@@ -683,7 +856,7 @@ def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict, ckpt_root: Path) 
             raise AssertionError(f"{mode} differs from ring by {diff} after 2 sweeps")
         del st
     return {"engine": engine, "launches": counts["FUSED_LAUNCHES"],
-            "reduce_launches": counts["FUSED_REDUCE_LAUNCHES"], "save": save,
+            "reduce_launches": counts["FUSED_REDUCE_LAUNCHES"], "save": save, "peak": peak,
             "expected_per_sweep": {"FUSED_LAUNCHES": expected_per_sweep, "FUSED_REDUCE_LAUNCHES": split_layouts},
             "steady_sweep_s": block_s[-1] / cfg.run.sweeps_per_block}
 
@@ -928,6 +1101,8 @@ def heldout_rmse(np, predictor, test) -> float:
 
 def phase_merge(torch, gram_kernel, BPMFEngine, ml: dict, ckpt_root: Path) -> dict:
     """``posterior_merge`` with 4 chains on this card at ML20M: 4 sweeps, every launch counted."""
+    from repro_torch.core import sweep_graph
+
     cfg = ml["cfg"].replace(name="posterior_merge", num_partitions=MERGE_PARTITIONS, partition_strategy="lpt",
                             merge_method="precision", checkpoint_dir=str(ckpt_root / "merge"))
     engine = BPMFEngine(cfg)
@@ -967,9 +1142,10 @@ def phase_merge(torch, gram_kernel, BPMFEngine, ml: dict, ckpt_root: Path) -> di
     counts = {name: getattr(gram_kernel, name) for name in COUNTERS}
     peak = torch.cuda.max_memory_allocated()
     rmse = [[m.rmse_sample, m.rmse_avg] for m in engine.history]
-    sweeps = engine.num_sweeps_done
+    sweeps = engine.num_sweeps_done + sweep_graph.WARMUP_SWEEPS  # the capture's warm-up too
     print(json.dumps({
-        "phase": "merge_sweeps", "sweeps": sweeps,
+        "phase": "merge_sweeps", "sweeps": engine.num_sweeps_done,
+        "warmup_sweeps": sweep_graph.WARMUP_SWEEPS, "graph_replays": b.graph.replays,
         "seconds_per_sweep_by_block": [s_ / cfg.run.sweeps_per_block for s_ in block_s],
         "rmse_sample_avg": rmse, "counts": counts,
         "expected": {"LAUNCHES": n_buckets * sweeps, "REDUCE_LAUNCHES": split_buckets * sweeps},
@@ -987,7 +1163,8 @@ def phase_merge(torch, gram_kernel, BPMFEngine, ml: dict, ckpt_root: Path) -> di
     if counts["PLAIN_CALLS"] or counts["FUSED_PLAIN_CALLS"] or counts["FUSED_LAUNCHES"]:
         raise AssertionError(f"the merge chains ran something other than bpmf_gram: {counts}")
     return {"engine": engine, "launches": counts["LAUNCHES"], "reduce_launches": counts["REDUCE_LAUNCHES"],
-            "save": save, "expected_per_sweep": {"LAUNCHES": n_buckets, "REDUCE_LAUNCHES": split_buckets},
+            "save": save, "peak": peak,
+            "expected_per_sweep": {"LAUNCHES": n_buckets, "REDUCE_LAUNCHES": split_buckets},
             "steady_sweep_s": block_s[-1] / cfg.run.sweeps_per_block}
 
 
@@ -1139,7 +1316,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.bpmf import BPMFConfig, BPMFEngine, load_dataset
     from repro_torch.core import distributed as dist
-    from repro_torch.core import subset_merge
+    from repro_torch.core import subset_merge, sweep_graph
     from repro_torch.data.sparse import train_test_split
     from repro_torch.core.types import Bucket
     from repro_torch.data.synthetic import ML20M_LIKE, synthetic_ratings
@@ -1161,7 +1338,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp_name:
         tmp = Path(tmp_name)
         ml = phase_ml20m(torch, gram_kernel, (BPMFConfig, BPMFEngine, ML20M_LIKE, synthetic_ratings), tmp)
+        phase_graph_sweeps(torch, ml["engine"], ml, "sequential", card)
         phase_checkpoint(torch, np, gram_kernel, ml["engine"], ml, "ml20m_checkpoint", card)
+        phase_pipeline(torch, ml["engine"], card)
         phase_fused_one_shard(torch, gram_kernel, ops, ml["engine"])
         phase_requests(torch, np, ml["engine"])
         phase_serve(torch, np, gram_kernel, ml["engine"], tmp, card)
@@ -1172,6 +1351,7 @@ def main() -> int:
         del ml["engine"]
         torch.cuda.empty_cache()
         ring = phase_ring(torch, gram_kernel, BPMFEngine, dist, ml, tmp)
+        phase_graph_sweeps(torch, ring["engine"], ring, f"ring S={RING_SHARDS}", card, dist=dist)
         phase_checkpoint(torch, np, gram_kernel, ring["engine"], ring, "ring_checkpoint", card)
     phase_profile(torch, ring["engine"], ring["steady_sweep_s"], "profile_one_ring_sweep")
     fused = phase_ring_layouts(torch, gram_kernel, ring["engine"])
@@ -1181,6 +1361,7 @@ def main() -> int:
     baseline = subset_merge.column_mean_rmse(ml["coo"], ml["cfg"].run.test_fraction, ml["cfg"].run.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke-merge-") as tmp_name:
         merge = phase_merge(torch, gram_kernel, BPMFEngine, ml, Path(tmp_name))
+        phase_graph_sweeps(torch, merge["engine"], merge, f"posterior_merge P={MERGE_PARTITIONS}", card)
         phase_checkpoint(torch, np, gram_kernel, merge["engine"], merge, "merge_checkpoint", card)
         phase_merge_export(torch, np, merge["engine"], heldout, seq_rmse, baseline, Path(tmp_name), card,
                            subset_merge.MERGE_DEGRADATION_MAX)
@@ -1210,7 +1391,8 @@ def main() -> int:
         "reduce_launches": ml["reduce_launches"],
         "merge_launches": merge["launches"],
         "merge_reduce_launches": merge["reduce_launches"],
-        "note": f"ms, plain_ms, bound_ms and library_ms cover the {gram['launches']} launches of one "
+        "note": f"launches: the 4 replays of the captured sweep and the capture's eager warm-up sweep; "
+                f"ms, plain_ms, bound_ms and library_ms cover the {gram['launches']} launches of one "
                 "ML20M sweep (and their second passes); ms times single calls, device_ms runs of "
                 "back-to-back calls; no single PyTorch call computes the masked gather + Gram, so "
                 "library_ms is torch.bmm on each bucket's pre-gathered block, contraction only "
@@ -1229,7 +1411,8 @@ def main() -> int:
         "library_ms": fused["bmm_contraction_only_ms"],
         "device_ms": fused["kernel_device_ms"],
         "reduce_launches": ring["reduce_launches"],
-        "note": f"ms, plain_ms, bound_ms and library_ms cover the {fused['launches']} launches of one "
+        "note": f"launches: the 4 replays of the captured sweep and the capture's eager warm-up sweep; "
+                f"ms, plain_ms, bound_ms and library_ms cover the {fused['launches']} launches of one "
                 f"ML20M sweep of the {RING_SHARDS}-shard ring (and their second passes), from zero sums; "
                 "ms times single calls, device_ms runs of back-to-back calls; "
                 "no single PyTorch call computes the gather + Gram + per-item accumulation, so "

@@ -17,6 +17,18 @@ The full-data backends draw the same posterior samples for the same
 ``(seed, data)``, up to float reduction order; ``posterior_merge`` is
 approximate inference (``exact_parity = False``).
 
+Each backend defines one sweep, ``_sweep(key, carry)``, that issues device
+work only. On a CUDA device whose shards or chains all sit on one card,
+``sweep_block`` captures that sweep once as a CUDA graph and replays it
+(:class:`repro_torch.core.sweep_graph.SweepGraph`), the port's
+counterpart of the reference's ``jax.jit`` over ``lax.scan``; a capture
+that fails raises. On the CPU, and for a layout across several cards
+(written, never run: the copies between cards of ``Ring._send`` are
+not captured, ROADMAP Queue 1 item 9), the same sweep runs eagerly, op by
+op. On a card the eager loop is reached only through the private
+``_eager=True`` argument, which the card tests and ``chip_smoke.py`` use to
+hold the graph to it.
+
 Each backend also moves its state, prediction and posterior accumulators
 to and from *host trees*: nested dicts of numpy arrays with the JAX
 package's field names, layouts and dtypes (``int32`` counters), which the
@@ -42,7 +54,8 @@ from repro_torch.core import distributed as dist
 from repro_torch.core import gibbs, prng, subset_merge
 from repro_torch.core.prediction import PredictionState
 from repro_torch.core.subset_merge import MergeAccum
-from repro_torch.core.types import BPMFState, HyperParams, PosteriorAccum
+from repro_torch.core.sweep_graph import SweepGraph
+from repro_torch.core.types import BPMFState, HyperParams, PosteriorAccum, counter
 from repro_torch.data.sparse import (
     RatingsCOO,
     build_bpmf_data,
@@ -127,7 +140,7 @@ def accum_host_tree(
     """
     if (u_order is None) != (v_order is None):
         raise ValueError("accum_host_tree: pass both u_order and v_order, or neither")
-    count = accum.count
+    count = int(accum.count)
     if count == 0:
         U_sum, V_sum = _EMPTY_SUM, _EMPTY_SUM
     else:
@@ -135,7 +148,7 @@ def accum_host_tree(
         U_sum, V_sum = host_snapshot_leaf(accum.U_sum), host_snapshot_leaf(accum.V_sum)
         if u_order is not None:
             U_sum, V_sum = U_sum[u_order], V_sum[v_order]
-    slots = _window_slots(count, accum.keep, accum.filled)
+    slots = _window_slots(count, accum.keep, int(accum.filled))
     if slots.size:
         idx = torch.from_numpy(slots).to(accum.U_window.device)
         Us = host_snapshot_leaf(accum.U_window[idx])
@@ -207,7 +220,7 @@ def accum_from_host_tree(
     return PosteriorAccum(
         U_sum=torch.from_numpy(U_sum), V_sum=torch.from_numpy(V_sum),
         # only the S slots placed hold samples
-        count=count, filled=S,
+        count=counter(count), filled=counter(S),
         U_window=torch.from_numpy(U_win), V_window=torch.from_numpy(V_win),
     )
 
@@ -246,6 +259,8 @@ class Backend(abc.ABC):
     Lifecycle: ``prepare(coo)`` once (host-side layout, uploaded to
     ``device``), then ``init_state(key)`` and ``sweep_block(...)``
     repeatedly; ``factors(state)`` recovers (U, V) in original item order.
+    A subclass defines one sweep (:meth:`_sweep`) and where its carry lives
+    (:meth:`_devices`); :meth:`sweep_block` runs a block of them.
     """
 
     name: str = "?"
@@ -258,6 +273,10 @@ class Backend(abc.ABC):
         self.core_cfg = cfg.core()
         self.device = device
         self._prepared = False
+        # "auto" and "on" hand the graph's static buffers back (the next
+        # block overwrites them); "off" hands back copies
+        self.donate_blocks = cfg.backend.donate_blocks in ("auto", "on")
+        self.graph: SweepGraph | None = None
 
     @abc.abstractmethod
     def prepare(self, coo: RatingsCOO) -> None:
@@ -268,17 +287,51 @@ class Backend(abc.ABC):
         """Prior-predictive state; layout-independent per original item id."""
 
     @abc.abstractmethod
+    def _sweep(self, key: torch.Tensor, carry: tuple) -> tuple[tuple, torch.Tensor]:
+        """One sweep of ``carry = (state, pred, accum)``: ``(carry, row)``, device work only.
+
+        ``row`` is the sweep's ``[4]`` metrics row
+        (:func:`repro_torch.core.gibbs.metrics_row`) on :attr:`home`.
+        """
+
+    @abc.abstractmethod
+    def _devices(self) -> list[torch.device]:
+        """The devices the carry lives on."""
+
+    def captures(self) -> bool:
+        """Whether :meth:`sweep_block` replays a CUDA graph: the carry is on one CUDA device."""
+        devices = set(self._devices())
+        return len(devices) == 1 and next(iter(devices)).type == "cuda"
+
     def sweep_block(
         self, key: torch.Tensor, state, pred: PredictionState,
-        accum: PosteriorAccum, block_size: int,
+        accum: PosteriorAccum, block_size: int, *, _eager: bool = False,
     ):
         """``block_size`` sweeps with no host read inside.
 
+        On one card the first call captures :meth:`_sweep` as a CUDA graph
+        (:attr:`graph`) and every call replays it; elsewhere the sweeps run
+        eagerly. ``_eager=True`` forces the eager loop on a card too: it is
+        private, the comparison that the card tests and ``chip_smoke.py``
+        hold the graph to.
+
         Returns:
             ``(state, pred, accum, metrics)`` — ``metrics`` a
-            ``[block_size, 3]`` float32 device tensor of per-sweep
-            ``(rmse_sample, rmse_avg, sweep)`` rows.
+            ``[block_size, 4]`` float32 device tensor of per-sweep
+            ``(rmse_sample, rmse_avg, sweep, bad)`` rows
+            (:func:`repro_torch.core.gibbs.metrics_row`).
         """
+        carry = (state, pred, accum)
+        if _eager or not self.captures():
+            rows = []
+            for _ in range(block_size):
+                carry, row = self._sweep(key, carry)
+                rows.append(row)
+            return (*carry, torch.stack(rows))
+        if self.graph is None:
+            self.graph = SweepGraph(self._sweep, key, carry)
+        carry, rows = self.graph.run(key, carry, block_size, donate=self.donate_blocks)
+        return (*carry, rows)
 
     @abc.abstractmethod
     def factors(self, state) -> tuple[np.ndarray, np.ndarray]:
@@ -309,7 +362,7 @@ class Backend(abc.ABC):
         """Host tree of the prediction accumulator: ``{"sum_pred", "num_samples"}``."""
         return {
             "sum_pred": host_snapshot_leaf(pred.sum_pred),
-            "num_samples": np.asarray(pred.num_samples, np.int32),
+            "num_samples": np.asarray(int(pred.num_samples), np.int32),
         }
 
     def pred_from_host(self, tree: dict) -> PredictionState:
@@ -389,6 +442,7 @@ class SequentialBackend(Backend):
         )
         t1 = time.perf_counter()
         self.data = host.to(self.device)
+        self.prior = self.core_cfg.prior(self.device)
         self.prepare_seconds = {"build": t1 - t0, "upload": time.perf_counter() - t1}
         self._prepared = True
 
@@ -396,9 +450,13 @@ class SequentialBackend(Backend):
         """Prior-predictive factors keyed by item id."""
         return gibbs.init_state(key, self.data.num_users, self.data.num_movies, self.core_cfg)
 
-    def sweep_block(self, key, state, pred, accum, block_size):
-        """``block_size`` sweeps of :func:`repro_torch.core.gibbs.gibbs_sweep_block`."""
-        return gibbs.gibbs_sweep_block(key, state, pred, accum, self.data, self.core_cfg, block_size)
+    def _sweep(self, key, carry):
+        """One sweep of :func:`repro_torch.core.gibbs.sweep_step`."""
+        state, pred, accum, row = gibbs.sweep_step(key, *carry, self.data, self.core_cfg, self.prior)
+        return (state, pred, accum), row
+
+    def _devices(self) -> list[torch.device]:
+        return [self.device]
 
     def factors(self, state) -> tuple[np.ndarray, np.ndarray]:
         """(U, V) on the host."""
@@ -474,6 +532,7 @@ class DistributedBackend(Backend):
         t1 = time.perf_counter()
         fused = self.core_cfg.gram_impl in ("auto", "pallas_fused")
         self.data = dist.place_data(host, self.ring, fused=fused)
+        self.prior = self.core_cfg.prior(self.ring.home)
         if self.ring.home.type == "cuda":
             torch.cuda.synchronize(self.ring.home)
         self.prepare_seconds = {"build": t1 - t0, "upload": time.perf_counter() - t1}
@@ -488,11 +547,15 @@ class DistributedBackend(Backend):
         """Prior-predictive factor shards, rows keyed by original item id."""
         return dist.init_dist_state(key, self.data, self.core_cfg, self.ring)
 
-    def sweep_block(self, key, state, pred, accum, block_size):
-        """``block_size`` sweeps of :func:`repro_torch.core.distributed.dist_gibbs_sweep_block`."""
-        return dist.dist_gibbs_sweep_block(
-            key, state, pred, accum, self.data, self.core_cfg, self.ring, block_size
+    def _sweep(self, key, carry):
+        """One sweep of :func:`repro_torch.core.distributed.dist_sweep_step`."""
+        state, pred, accum, row = dist.dist_sweep_step(
+            key, *carry, self.data, self.core_cfg, self.ring, self.prior
         )
+        return (state, pred, accum), row
+
+    def _devices(self) -> list[torch.device]:
+        return self.ring.distinct_devices()
 
     def factors(self, state) -> tuple[np.ndarray, np.ndarray]:
         """(U, V) on the host, in original item order."""
@@ -536,6 +599,7 @@ class DistributedBackend(Backend):
                 whole,
                 U_sum=whole.U_sum[d * cap_u:(d + 1) * cap_u].to(dev),
                 V_sum=whole.V_sum[d * cap_v:(d + 1) * cap_v].to(dev),
+                count=whole.count.to(dev), filled=whole.filled.to(dev),
                 U_window=whole.U_window[:, d * cap_u:(d + 1) * cap_u].to(dev),
                 V_window=whole.V_window[:, d * cap_v:(d + 1) * cap_v].to(dev),
             )
@@ -557,6 +621,7 @@ class DistributedBackend(Backend):
             U=tuple(u.to(dev) for u, dev in zip(host.U, devices)),
             V=tuple(v.to(dev) for v, dev in zip(host.V, devices)),
             hyper_U=host.hyper_U.to(self.home), hyper_V=host.hyper_V.to(self.home),
+            sweep=host.sweep.to(self.home),
         )
 
     @property
@@ -654,6 +719,8 @@ class PosteriorMergeBackend(Backend):
         t1 = time.perf_counter()
         self.devices = bpmf_ring(P, self.device).devices
         self.chain_data = [d.to(dev) for d, dev in zip(host, self.devices)]
+        priors = {dev: self.core_cfg.prior(dev) for dev in dict.fromkeys(self.devices)}
+        self.priors = [priors[dev] for dev in self.devices]
         if self.home.type == "cuda":
             torch.cuda.synchronize(self.home)
         self.prepare_seconds = {"build": t1 - t0, "upload": time.perf_counter() - t1}
@@ -689,7 +756,7 @@ class PosteriorMergeBackend(Backend):
             states.append(BPMFState(
                 U=U.to(dev), V=V.to(dev),
                 hyper_U=HyperParams.init(K, dt, dev), hyper_V=HyperParams.init(K, dt, dev),
-                sweep=0,
+                sweep=counter(0, dev),
             ))
         return tuple(states)
 
@@ -701,7 +768,7 @@ class PosteriorMergeBackend(Backend):
         ``sqrt(sum_c T_c rmse_c^2 / T)``, in float64 and summed in chain
         order as the JAX package does; a chain with no test rating reports
         NaN and weighs zero. The sweep column is chain 0's (chains run in
-        lock-step).
+        lock-step); the ``bad`` column adds the chains' flags.
         """
         total = max(float(sum(self._test_counts)), 1.0)
         acc = None
@@ -709,28 +776,33 @@ class PosteriorMergeBackend(Backend):
             term = float(T_c) * torch.nan_to_num(rows[:, :2].to(self.home, torch.float64)).square()
             acc = term if acc is None else acc + term
         sweep = per_chain[0][:, 2:3].to(self.home, torch.float64)
-        return torch.cat([torch.sqrt(acc / total), sweep], dim=1).to(torch.float32)
+        bad = torch.stack([rows[:, 3:4].to(self.home, torch.float64) for rows in per_chain]).sum(dim=0)
+        return torch.cat([torch.sqrt(acc / total), sweep, bad], dim=1).to(torch.float32)
 
-    def sweep_block(self, key, state, pred, accum: MergeAccum, block_size):
-        """``block_size`` sweeps of every chain, then the combined metric rows.
+    def _sweep(self, key, carry):
+        """One sweep of every chain, back to back, then the combined metrics row.
 
-        Every chain's block is issued before any metric is combined, and
-        nothing is read back to the host here.
+        On one card the whole of it, every chain and the combination, is
+        one captured graph.
         """
+        state, pred, accum = carry
         outs = [
-            gibbs.gibbs_sweep_block(
+            gibbs.sweep_step(
                 subset_merge.chain_key(key, c).to(dev), state[c], pred[c], accum.chains[c],
-                self.chain_data[c], self.core_cfg, block_size,
+                self.chain_data[c], self.core_cfg, self.priors[c],
             )
             for c, dev in enumerate(self.devices)
         ]
-        metrics = self._combine_metric_rows([o[3] for o in outs])
-        return (
+        row = self._combine_metric_rows([o[3][None] for o in outs])[0]
+        carry = (
             tuple(o[0] for o in outs),
             tuple(o[1] for o in outs),
             MergeAccum(chains=tuple(o[2] for o in outs)),
-            metrics,
         )
+        return carry, row
+
+    def _devices(self) -> list[torch.device]:
+        return list(self.devices)
 
     def factors(self, state) -> tuple[np.ndarray, np.ndarray]:
         """(U, V) of the current per-chain samples: U rows from their owning

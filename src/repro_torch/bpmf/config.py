@@ -6,9 +6,6 @@ and checks, so a configuration carries over:
   * :class:`ModelConfig`   — the statistical model (paper §III)
   * :class:`RunConfig`     — schedule, data split, checkpointing
   * :class:`BackendConfig` — execution: backend name, kernels, bucketing
-
-What this port does not run yet raises ``NotImplementedError`` naming the
-ROADMAP item that brings it: ``pipeline_blocks > 1``.
 """
 from __future__ import annotations
 
@@ -54,8 +51,9 @@ class RunConfig:
         seed: Seeds both the train/test split and the sampler key.
         sweeps_per_block: Gibbs sweeps run between two host reads of the
             metrics; samples are identical at every value.
-        pipeline_blocks: Depth of the block dispatch queue; only 1 runs in
-            this port (ROADMAP Queue 1 item 9 brings deeper queues).
+        pipeline_blocks: Depth of the block dispatch queue: blocks
+            dispatched before the oldest one's metrics are read (1 = read
+            each block before the next; same samples at every depth).
         async_checkpoint_writes: Write checkpoints on the manager's
             background thread: ``save()`` takes host copies and returns
             without waiting for the files. ``False`` saves synchronously.
@@ -102,11 +100,6 @@ class RunConfig:
             raise ValueError(
                 f"RunConfig.keep_checkpoints must be >= 0, got {self.keep_checkpoints}"
             )
-        if self.pipeline_blocks > 1:
-            raise NotImplementedError(
-                "RunConfig.pipeline_blocks > 1 is not ported yet "
-                "(ROADMAP Queue 1 item 9: overlap and multi-process)"
-            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,8 +129,13 @@ class BackendConfig:
         merge_method: ``posterior_merge`` only: ``"precision"``
             (precision-weighted product of the subset Gaussians) or
             ``"pool"`` (uniform weights).
-        donate_blocks: Block carry donation: ``"auto"``, ``"on"`` or
-            ``"off"``. The port updates its accumulators in place either way.
+        donate_blocks: Block carry donation: ``"auto"`` or ``"on"`` hand
+            the captured sweep's static buffers back as the new carry, and
+            the next block overwrites them (the reference's donated buffers
+            are consumed the same way); ``"off"`` hands back copies, so a
+            carry kept from an earlier block is never overwritten. The
+            eager loop (CPU) allocates new factors every sweep either way,
+            and every path updates the posterior accumulator in place.
     """
 
     name: str = "sequential"

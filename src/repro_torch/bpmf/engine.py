@@ -14,18 +14,28 @@ The sampler key derives from ``RunConfig.seed`` and per-sweep keys from
 ``(key, sweep)``, exactly as in the JAX package, so the same seed draws the
 same normals in both, and a run restored from a checkpoint continues with
 the randomness of an uninterrupted one. Sweeps run in blocks of
-``RunConfig.sweeps_per_block`` with one host read of the block's metrics;
-blocks shrink to land on ``checkpoint_every`` boundaries, where the engine
-saves.
+``RunConfig.sweeps_per_block``; on a GPU each block is the backend's
+captured sweep replayed (:mod:`repro_torch.core.sweep_graph`), with no
+host read inside. Blocks shrink to land on ``checkpoint_every``
+boundaries, where the engine saves.
+
+With ``RunConfig.pipeline_blocks = d > 1`` the loop is pipelined, as the
+JAX package's is: up to ``d`` blocks are dispatched ahead of the metrics
+drain. Each block's metrics start their copy to a pinned host buffer when
+the block is dispatched, and the drain waits on that copy's event: the one
+read of the block. Dispatch stops at ``checkpoint_every`` boundaries, and
+``save``, ``export`` and ``restore`` drain the queue first. Samples,
+metrics, checkpoints and artifacts are bit for bit the same at every
+block size and depth.
 
 Checkpoints and serving artifacts are the JAX package's files, leaf for
 leaf: a checkpoint either package writes restores in the other, and so
-does an artifact. This port runs one block at a time (no
-``pipeline_blocks`` queue: ROADMAP Queue 1 item 9), so no block is ever in
-flight when ``save``, ``restore`` or ``export`` runs.
+does an artifact.
 """
 from __future__ import annotations
 
+import time
+from collections import deque
 from typing import Iterator
 
 import numpy as np
@@ -100,6 +110,14 @@ class BPMFEngine:
         self._ckpt: CheckpointManager | None = None
         self._predictor: PosteriorPredictor | None = None
         self._predictor_sweep = -1
+        # bytes of the metrics read back from the device, summed over the run
+        self.host_metric_bytes = 0
+        # seconds the host spent waiting for those reads, summed over the
+        # run (the wait the pipelined dispatch queue exists to hide)
+        self.host_blocked_s = 0.0
+        # dispatched blocks whose metrics are not read yet: (rows, event);
+        # rows is a host tensor, filled once the event has completed
+        self._inflight: deque[tuple[torch.Tensor, torch.cuda.Event | None]] = deque()
         keys = prng.split(prng.key(self.cfg.run.seed, self.device))
         self._k_init, self._k_run = keys[0], keys[1]
 
@@ -157,15 +175,68 @@ class BPMFEngine:
             n = min(n, run.checkpoint_every - self._sweeps_done % run.checkpoint_every)
         return max(n, 1)
 
+    def _dispatch(self, n: int) -> None:
+        """Issue a block of ``n`` sweeps and start its metrics copy to the host."""
+        self._state, self._pred, self._accum, rows = self.backend.sweep_block(
+            self._k_run, self._state, self._pred, self._accum, n
+        )
+        event = None
+        if rows.device.type == "cuda":
+            host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+            host.copy_(rows, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(rows.device))
+            rows = host
+        self._inflight.append((rows, event))
+        self._sweeps_done += n
+
+    def _drain_one(self) -> None:
+        """Read the oldest dispatched block's metrics into ``history``.
+
+        The block's one host read: the wait on the event of the copy started
+        at dispatch. A sweep whose row flags a non-finite hyper-parameter
+        draw raises here.
+
+        Raises:
+            FloatingPointError: A sweep drew a non-finite Wishart precision
+                (a gamma entry that no round of ``prng.GAMMA_ROUNDS``
+                accepted, or a failed factorization).
+        """
+        rows, event = self._inflight.popleft()
+        t0 = time.perf_counter()
+        if event is not None:
+            event.synchronize()
+        rows = rows.numpy()
+        self.host_blocked_s += time.perf_counter() - t0
+        self.host_metric_bytes += int(rows.nbytes)
+        bad = [int(r[2]) for r in rows if r[3] != 0]
+        if bad:
+            raise FloatingPointError(
+                f"sweeps {bad} drew a non-finite hyper-parameter precision (a gamma draw "
+                f"with no accepted proposal in {prng.GAMMA_ROUNDS} rounds, or a failed factorization)"
+            )
+        self.history.extend(SweepMetrics(float(r[0]), float(r[1]), float(r[2])) for r in rows)
+
+    def _drain_inflight(self) -> None:
+        """Read every dispatched block's metrics: the barrier of ``save``,
+        ``export``, ``restore``, checkpoint boundaries and the run's end."""
+        while self._inflight:
+            self._drain_one()
+
     def sample(self, data: RatingsCOO | ChunkedRatings | None = None) -> Iterator[SweepMetrics]:
         """Stream per-sweep metrics from the current sweep to ``num_sweeps``.
 
         Resumable: after ``restore()`` the iterator continues where the
         checkpoint left off, drawing the randomness of an uninterrupted run.
-        Sweeps run in blocks of ``RunConfig.sweeps_per_block``; a block's
-        metrics are read from the device once, after the block. At each
-        ``checkpoint_every`` boundary the engine saves before yielding the
-        block's metrics.
+        Sweeps run in blocks of ``RunConfig.sweeps_per_block``, and a
+        block's metrics are read from the device once. With
+        ``RunConfig.pipeline_blocks = d > 1`` up to ``d`` blocks are
+        dispatched before the oldest one's metrics are read; the queue
+        drains at ``checkpoint_every`` boundaries, where the engine saves
+        before yielding, and at the end. The metrics of a block come
+        together; abandoning the iterator leaves the engine at the end of
+        the last dispatched block (``save``, ``export`` or the next
+        ``sample`` drains the rest).
 
         Yields:
             One :class:`SweepMetrics` (sample / posterior-mean RMSE, sweep
@@ -174,17 +245,26 @@ class BPMFEngine:
         if data is not None:
             self.prepare(data)
         self._ensure_state()
-        every = self.cfg.run.checkpoint_every
-        while self._sweeps_done < self.cfg.run.num_sweeps:
-            n = self._next_block_len()
-            self._state, self._pred, self._accum, rows = self.backend.sweep_block(
-                self._k_run, self._state, self._pred, self._accum, n
-            )
-            self._sweeps_done += n
-            block = [SweepMetrics(*map(float, r)) for r in rows.cpu().numpy()]
-            self.history.extend(block)
-            if every and self._sweeps_done % every == 0:
+        run = self.cfg.run
+        every = run.checkpoint_every
+        depth = run.pipeline_blocks
+        yielded = len(self.history)
+        while self._sweeps_done < run.num_sweeps or self._inflight:
+            # dispatch up to `depth` blocks ahead of the drain, stopping at a
+            # checkpoint boundary so that save() snapshots that sweep's carry
+            while self._sweeps_done < run.num_sweeps and len(self._inflight) < depth:
+                self._dispatch(self._next_block_len())
+                if every and self._sweeps_done % every == 0:
+                    break
+            at_ckpt = every and self._sweeps_done % every == 0
+            final = self._sweeps_done >= run.num_sweeps
+            keep = 0 if (at_ckpt or final) else depth - 1
+            while len(self._inflight) > keep:
+                self._drain_one()
+            if at_ckpt:
                 self.save()
+            block = self.history[yielded:]
+            yielded = len(self.history)
             yield from block
 
     def fit(self, data: RatingsCOO | ChunkedRatings | None = None, resume: bool = False) -> "BPMFEngine":
@@ -215,7 +295,11 @@ class BPMFEngine:
 
     @property
     def num_sweeps_done(self) -> int:
-        """Sweeps run so far (``restore()`` positions this at the checkpoint step)."""
+        """Sweeps dispatched so far (``restore()`` positions this at the checkpoint step).
+
+        At ``pipeline_blocks > 1`` the metrics of the last blocks may still
+        be in flight; ``save``, ``export`` and the end of ``sample`` drain them.
+        """
         return self._sweeps_done
 
     @property
@@ -285,8 +369,9 @@ class BPMFEngine:
         factors, the retained per-sweep samples, the mean rating, the clip
         range and the run's metadata, for
         :meth:`repro_torch.serve.PosteriorPredictor.load` or either
-        package's serving CLIs to load without re-running MCMC. Checkpoint
-        writes still pending on the async writer commit first.
+        package's serving CLIs to load without re-running MCMC. Blocks in
+        flight drain first, and checkpoint writes still pending on the async
+        writer commit first.
 
         Args:
             directory: Artifact directory (replaced if it already holds one).
@@ -294,6 +379,7 @@ class BPMFEngine:
         Returns:
             The artifact directory.
         """
+        self._drain_inflight()
         if self._ckpt is not None:
             self._ckpt.wait()
         meta, arrays = self._artifact_payload()
@@ -302,7 +388,7 @@ class BPMFEngine:
     def save(self, step: int | None = None) -> int:
         """Checkpoint the state, the prediction accumulator, the posterior and the metric history.
 
-        Host copies of every leaf are taken before this returns (a CUDA
+        Blocks in flight drain first. Host copies of every leaf are taken before this returns (a CUDA
         tensor is copied on its device's current stream); with
         ``RunConfig.async_checkpoint_writes`` (the default) the files are
         written on the manager's background thread. The commit is atomic
@@ -318,6 +404,7 @@ class BPMFEngine:
             The step the checkpoint was written at.
         """
         self._ensure_state()
+        self._drain_inflight()
         step = self._sweeps_done if step is None else step
         hist = np.asarray(
             [[m.rmse_sample, m.rmse_avg, m.sweep] for m in self.history[:step]], np.float32
@@ -334,7 +421,7 @@ class BPMFEngine:
     def restore(self, data: RatingsCOO | ChunkedRatings | None = None, step: int | None = None) -> int:
         """Load a checkpoint and position the run loop at its sweep count.
 
-        The backend must be prepared (pass ``data`` here or call
+        Blocks in flight drain first. The backend must be prepared (pass ``data`` here or call
         ``prepare`` first). Metric history up to the checkpointed sweep is
         restored too, so ``rmse`` and ``history`` are complete even in a
         fresh process. A checkpoint without a ``posterior`` subtree (written
@@ -357,6 +444,7 @@ class BPMFEngine:
             self.prepare(data)
         if not self.backend.prepared:
             raise RuntimeError("no data: call restore(data) or prepare(data) first")
+        self._drain_inflight()
         mgr = self._manager()
         step = mgr.latest() if step is None else step
         if step is None:

@@ -52,12 +52,17 @@ from repro_torch.core.types import (
     TestSet,
 )
 
-# counters that are 0-d int32 device arrays in the JAX package and ints here
+# counters: 0-d int32 arrays in both packages
 _INT_SCALARS = {"sweep", "num_samples", "count", "filled"}
 
 
 def _t(x: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
+
+
+def _counter(x: Any) -> torch.Tensor:
+    """A 0-dim int32 counter tensor from a tree leaf."""
+    return torch.from_numpy(np.array(np.asarray(x), np.int32).reshape(()))
 
 
 def key_from_data(data: Any) -> torch.Tensor:
@@ -76,7 +81,7 @@ def to_tree(obj: Any) -> Any:
         out = {}
         for f in dataclasses.fields(obj):
             v = getattr(obj, f.name)
-            out[f.name] = np.asarray(v, np.int32) if f.name in _INT_SCALARS else to_tree(v)
+            out[f.name] = np.asarray(to_tree(v), np.int32) if f.name in _INT_SCALARS else to_tree(v)
         return out
     if isinstance(obj, tuple):
         return tuple(to_tree(v) for v in obj)
@@ -94,14 +99,14 @@ def state_from_tree(tree: Mapping) -> BPMFState:
     return BPMFState(
         U=_t(tree["U"]), V=_t(tree["V"]),
         hyper_U=_hyper(tree["hyper_U"]), hyper_V=_hyper(tree["hyper_V"]),
-        sweep=int(np.asarray(tree["sweep"])),
+        sweep=_counter(tree["sweep"]),
     )
 
 
 def prediction_from_tree(tree: Mapping) -> PredictionState:
     """:class:`PredictionState` from a ``repro.core.prediction.PredictionState`` tree."""
     return PredictionState(
-        sum_pred=_t(tree["sum_pred"]), num_samples=int(np.asarray(tree["num_samples"]))
+        sum_pred=_t(tree["sum_pred"]), num_samples=_counter(tree["num_samples"])
     )
 
 
@@ -109,7 +114,7 @@ def accum_from_tree(tree: Mapping) -> PosteriorAccum:
     """:class:`PosteriorAccum` from a ``repro.core.types.PosteriorAccum`` tree."""
     return PosteriorAccum(
         U_sum=_t(tree["U_sum"]), V_sum=_t(tree["V_sum"]),
-        count=int(np.asarray(tree["count"])), filled=int(np.asarray(tree["filled"])),
+        count=_counter(tree["count"]), filled=_counter(tree["filled"]),
         U_window=_t(tree["U_window"]), V_window=_t(tree["V_window"]),
     )
 
@@ -152,7 +157,7 @@ def dist_state_from_tree(tree: Mapping, num_shards: int) -> DistState:
     return DistState(
         U=_blocks(tree["U"], num_shards), V=_blocks(tree["V"], num_shards),
         hyper_U=_hyper(tree["hyper_U"]), hyper_V=_hyper(tree["hyper_V"]),
-        sweep=int(np.asarray(tree["sweep"])),
+        sweep=_counter(tree["sweep"]),
     )
 
 

@@ -45,14 +45,21 @@ import torch
 
 from repro_torch.core import posterior, prng
 from repro_torch.core.balance import CostModel, Partition, partition_items
-from repro_torch.core.gibbs import SweepMetrics, init_rows, sweep_keys
-from repro_torch.core.hyper import hyper_sufficient_stats, sample_hyper_from_stats
+from repro_torch.core.gibbs import SweepMetrics, init_rows, metrics_row, sweep_keys
+from repro_torch.core.hyper import hyper_ok, hyper_sufficient_stats, sample_hyper_from_stats
 from repro_torch.core.prediction import (
     PredictionState,
     accumulate_predictions,
     update_posterior_accum,
 )
-from repro_torch.core.types import BPMFConfig, Bucket, HyperParams, PosteriorAccum
+from repro_torch.core.types import (
+    BPMFConfig,
+    Bucket,
+    HyperParams,
+    NormalWishartPrior,
+    PosteriorAccum,
+    counter,
+)
 from repro_torch.data.sparse import RatingsCOO, csr_from_coo, stable_mean, train_test_split
 from repro_torch.kernels import ops
 
@@ -135,7 +142,7 @@ class DistState:
     V: tuple[torch.Tensor, ...]
     hyper_U: HyperParams
     hyper_V: HyperParams
-    sweep: int
+    sweep: torch.Tensor  # 0-dim int32 on the ring's home device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -568,12 +575,16 @@ def _predict_dist(U, V, test: DistTestSet, mean_rating, min_rating, max_rating, 
 
 
 def _sweep_step(key, state: DistState, pred: PredictionState, data: DistBPMFData,
-                cfg: BPMFConfig, ring: Ring) -> tuple[DistState, PredictionState, torch.Tensor]:
-    """One full Gibbs sweep over the ring (Algorithm 1, distributed); the metrics row stays on the device."""
+                cfg: BPMFConfig, ring: Ring,
+                prior: NormalWishartPrior | None = None) -> tuple[DistState, PredictionState, torch.Tensor]:
+    """One full Gibbs sweep over the ring (Algorithm 1, distributed); the metrics row stays on the device.
+
+    ``prior`` is ``cfg.prior(ring.home)``, built here when not given.
+    """
     if cfg.comm_mode not in _HALVES:
         raise ValueError(f"unknown comm_mode {cfg.comm_mode!r}; one of {sorted(_HALVES)}")
     half = _HALVES[cfg.comm_mode]
-    prior = cfg.prior(ring.home)
+    prior = cfg.prior(ring.home) if prior is None else prior
     k_hv, k_v, k_hu, k_u = sweep_keys(key, state.sweep)
 
     # movies given users
@@ -586,8 +597,24 @@ def _sweep_step(key, state: DistState, pred: PredictionState, data: DistBPMFData
     sweep = state.sweep + 1
     preds = _predict_dist(U, V, data.test, data.mean_rating, data.min_rating, data.max_rating, ring)
     pred, r_sample, r_avg = accumulate_predictions(pred, preds, data.test.vals, sweep > cfg.burn_in)
-    row = torch.stack([r_sample, r_avg, torch.tensor(float(sweep), device=ring.home)])
+    row = metrics_row(r_sample, r_avg, sweep, hyper_ok(hyper_U, hyper_V))
     return DistState(U=U, V=V, hyper_U=hyper_U, hyper_V=hyper_V, sweep=sweep), pred, row
+
+
+def dist_sweep_step(key, state: DistState, pred: PredictionState, accum: tuple[PosteriorAccum, ...],
+                    data: DistBPMFData, cfg: BPMFConfig, ring: Ring,
+                    prior: NormalWishartPrior | None = None):
+    """One sweep of a block: :func:`_sweep_step`, then every shard's accumulator (in place).
+
+    The unit that the ring backends capture as a CUDA graph. Returns
+    ``(state, pred, accum, row)``.
+    """
+    state, pred, row = _sweep_step(key, state, pred, data, cfg, ring, prior)
+    accum = tuple(
+        update_posterior_accum(a, state.U[d], state.V[d], (state.sweep > cfg.burn_in).to(a.count.device))
+        for d, a in enumerate(accum)
+    )
+    return state, pred, accum, row
 
 
 def dist_gibbs_sweep_block(
@@ -599,21 +626,19 @@ def dist_gibbs_sweep_block(
     cfg: BPMFConfig,
     ring: Ring,
     block_size: int,
+    prior: NormalWishartPrior | None = None,
 ) -> tuple[DistState, PredictionState, tuple[PosteriorAccum, ...], torch.Tensor]:
-    """``block_size`` distributed sweeps with no read back to the host.
+    """``block_size`` distributed sweeps, issued one op at a time, with no read back to the host.
 
     Shard d's posterior accumulator (``accum[d]``) sums its own rows on its
     device, updated in place. Returns ``(state, pred, accum, metrics)``
-    with ``metrics`` a ``[block_size, 3]`` float32 tensor of per-sweep
-    ``(rmse_sample, rmse_avg, sweep)`` rows on the ring's home device.
+    with ``metrics`` a ``[block_size, 4]`` float32 tensor of per-sweep rows
+    (:func:`repro_torch.core.gibbs.metrics_row`) on the ring's home device.
     """
+    prior = cfg.prior(ring.home) if prior is None else prior
     rows = []
     for _ in range(block_size):
-        state, pred, row = _sweep_step(key, state, pred, data, cfg, ring)
-        burned = state.sweep > cfg.burn_in
-        accum = tuple(
-            update_posterior_accum(a, state.U[d], state.V[d], burned) for d, a in enumerate(accum)
-        )
+        state, pred, accum, row = dist_sweep_step(key, state, pred, accum, data, cfg, ring, prior)
         rows.append(row)
     return state, pred, accum, torch.stack(rows)
 
@@ -633,7 +658,7 @@ def init_dist_state(key: torch.Tensor, data: DistBPMFData, cfg: BPMFConfig, ring
         V=tuple(init_rows(kvs[d], ids, cfg.K).to(dt) for d, ids in enumerate(data.movies.orig_ids)),
         hyper_U=HyperParams.init(cfg.K, dt, ring.home),
         hyper_V=HyperParams.init(cfg.K, dt, ring.home),
-        sweep=0,
+        sweep=counter(0, ring.home),
     )
 
 
@@ -660,7 +685,7 @@ def run_distributed(
     history: list[SweepMetrics] = []
     for _ in range(num_sweeps):
         state, pred, accum, rows = dist_gibbs_sweep_block(k_run, state, pred, accum, data, cfg, ring, 1)
-        metrics = SweepMetrics(*map(float, rows[0].cpu().numpy()))
+        metrics = SweepMetrics(*map(float, rows[0, :3].cpu().numpy()))
         history.append(metrics)
         if callback is not None:
             callback(state, metrics)

@@ -7,9 +7,16 @@ Order per sweep (exactly Algorithm 1):
   4. resample every user from (new V, R)
   5. predict test points, update RMSE
 
-A block of sweeps is a Python loop (the JAX package's ``lax.scan``); each
-sweep's RMSEs stay on the device, and the block returns them as one
-``[block, 3]`` tensor for a single read by the caller.
+A sweep issues device work only: the sweep index and the sample counts
+are device counters, the burn-in gate is the device predicate
+``sweep > burn_in``, and each sweep's metrics stay on the device. The
+eager block here is a Python loop (the JAX package's ``lax.scan``); on a
+GPU the backends capture one sweep as a CUDA graph and replay it
+(:mod:`repro_torch.core.sweep_graph`), the counterpart of ``jax.jit``. A
+block returns one ``[block, 4]`` tensor of metric rows for a single read
+by the caller: ``(rmse_sample, rmse_avg, sweep, bad)``, where ``bad`` is
+1.0 for a sweep whose hyper-parameter draw is not finite
+(:func:`repro_torch.core.hyper.hyper_ok`) and 0.0 otherwise.
 """
 from __future__ import annotations
 
@@ -18,19 +25,33 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import posterior, prng
-from repro_torch.core.hyper import sample_hyper
+from repro_torch.core.hyper import hyper_ok, sample_hyper
 from repro_torch.core.prediction import (
     PredictionState,
     update_posterior_accum,
     update_predictions,
 )
-from repro_torch.core.types import BPMFConfig, BPMFData, BPMFState, HyperParams, PosteriorAccum
+from repro_torch.core.types import (
+    BPMFConfig,
+    BPMFData,
+    BPMFState,
+    HyperParams,
+    NormalWishartPrior,
+    PosteriorAccum,
+    counter,
+)
 
 
 class SweepMetrics(NamedTuple):
     rmse_sample: float
     rmse_avg: float
     sweep: float
+
+
+def metrics_row(r_sample: torch.Tensor, r_avg: torch.Tensor, sweep: torch.Tensor,
+                ok: torch.Tensor) -> torch.Tensor:
+    """One sweep's ``[4]`` float32 row ``(rmse_sample, rmse_avg, sweep, bad)``, on the device."""
+    return torch.stack([r_sample, r_avg, sweep.to(torch.float32), (~ok).to(torch.float32)])
 
 
 def init_rows(key: torch.Tensor, ids: torch.Tensor, K: int) -> torch.Tensor:
@@ -48,12 +69,12 @@ def init_state(key: torch.Tensor, num_users: int, num_movies: int, cfg: BPMFConf
         V=init_rows(kv, torch.arange(num_movies, device=dev), cfg.K).to(dt),
         hyper_U=HyperParams.init(cfg.K, dt, dev),
         hyper_V=HyperParams.init(cfg.K, dt, dev),
-        sweep=0,
+        sweep=counter(0, dev),
     )
 
 
-def sweep_keys(key: torch.Tensor, sweep: int) -> tuple[torch.Tensor, ...]:
-    """Deterministic per-sweep keys: (hyper_V, movies, hyper_U, users)."""
+def sweep_keys(key: torch.Tensor, sweep: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Deterministic per-sweep keys: (hyper_V, movies, hyper_U, users), from the device counter."""
     k = prng.fold_in(key, sweep)
     return tuple(prng.fold_in(k, i) for i in range(4))
 
@@ -64,9 +85,14 @@ def _sweep_body(
     pred_state: PredictionState,
     data: BPMFData,
     cfg: BPMFConfig,
+    prior: NormalWishartPrior | None = None,
 ) -> tuple[BPMFState, PredictionState, torch.Tensor]:
-    """One Gibbs sweep; returns the metrics row ``[rmse_sample, rmse_avg, sweep]`` on the device."""
-    prior = cfg.prior(key.device)
+    """One Gibbs sweep; returns the metrics row (:func:`metrics_row`) on the device.
+
+    ``prior`` is ``cfg.prior(device)``, built here when not given (the
+    backends build it once).
+    """
+    prior = cfg.prior(key.device) if prior is None else prior
     k_hv, k_v, k_hu, k_u = sweep_keys(key, state.sweep)
 
     # movies given users
@@ -87,8 +113,26 @@ def _sweep_body(
     pred_state, r_sample, r_avg = update_predictions(
         pred_state, U, V, data, burned_in=sweep > cfg.burn_in
     )
-    row = torch.stack([r_sample, r_avg, torch.tensor(float(sweep), device=r_sample.device)])
+    row = metrics_row(r_sample, r_avg, sweep, hyper_ok(hyper_U, hyper_V))
     return new_state, pred_state, row
+
+
+def sweep_step(
+    key: torch.Tensor,
+    state: BPMFState,
+    pred_state: PredictionState,
+    accum: PosteriorAccum,
+    data: BPMFData,
+    cfg: BPMFConfig,
+    prior: NormalWishartPrior | None = None,
+) -> tuple[BPMFState, PredictionState, PosteriorAccum, torch.Tensor]:
+    """One sweep of a block: :func:`_sweep_body`, then the posterior accumulator (in place).
+
+    The unit that the sequential backend captures as a CUDA graph.
+    """
+    state, pred_state, row = _sweep_body(key, state, pred_state, data, cfg, prior)
+    accum = update_posterior_accum(accum, state.U, state.V, state.sweep > cfg.burn_in)
+    return state, pred_state, accum, row
 
 
 def gibbs_sweep_block(
@@ -99,20 +143,23 @@ def gibbs_sweep_block(
     data: BPMFData,
     cfg: BPMFConfig,
     block_size: int,
+    prior: NormalWishartPrior | None = None,
 ) -> tuple[BPMFState, PredictionState, PosteriorAccum, torch.Tensor]:
-    """``block_size`` Gibbs sweeps with no read back to the host.
+    """``block_size`` Gibbs sweeps, issued one op at a time, with no read back to the host.
 
-    Per-sweep randomness is keyed by ``state.sweep``, so any partition of a
-    run into blocks draws the same samples. ``accum`` is updated in place.
+    Per-sweep randomness is keyed by the device counter ``state.sweep``, so
+    any partition of a run into blocks draws the same samples. ``accum`` is
+    updated in place. This is the CPU path, and on a GPU the comparison
+    for the captured block (:mod:`repro_torch.core.sweep_graph`).
 
     Returns:
         ``(state, pred_state, accum, metrics)`` with ``metrics`` a
-        ``[block_size, 3]`` float32 device tensor of per-sweep
-        ``(rmse_sample, rmse_avg, sweep)`` rows.
+        ``[block_size, 4]`` float32 device tensor of per-sweep rows
+        (:func:`metrics_row`).
     """
+    prior = cfg.prior(key.device) if prior is None else prior
     rows = []
     for _ in range(block_size):
-        state, pred_state, row = _sweep_body(key, state, pred_state, data, cfg)
-        accum = update_posterior_accum(accum, state.U, state.V, state.sweep > cfg.burn_in)
+        state, pred_state, accum, row = sweep_step(key, state, pred_state, accum, data, cfg, prior)
         rows.append(row)
     return state, pred_state, accum, torch.stack(rows)

@@ -15,7 +15,11 @@ mu ~ N(mu*, (beta* Lambda)^-1). Keys are split exactly as in
 
 ``X.T @ X`` is a plain float32 matrix product; the engine keeps
 ``torch.backends.cuda.matmul.allow_tf32`` off so it stays full float32 on
-the GPU.
+the GPU. The inverses and Cholesky factors are the ``_ex`` forms, which do
+not read their error status back to the host: a singular or indefinite
+matrix gives NaN or garbage in the draw, as JAX's give NaN, instead of
+raising, and the sweep's metrics row flags a Wishart draw that is not
+finite (``hyper_ok``).
 """
 from __future__ import annotations
 
@@ -52,7 +56,8 @@ def hyper_sufficient_stats(
     shard can pass its whole ``[cap, K]`` block without biasing the draw.
     """
     if weights is None:
-        n = torch.tensor(float(X.shape[0]), dtype=X.dtype, device=X.device)
+        # filled on the device: no host copy inside a captured sweep
+        n = X.new_full((), float(X.shape[0]))
         return n, X.sum(dim=0), X.T @ X
     w = weights.to(X.dtype)
     Xw = X * w[:, None]
@@ -77,19 +82,19 @@ def sample_hyper_from_stats(
     nu_star = prior.nu0 + n
     mu_star = (prior.beta0 * prior.mu0 + n * xbar) / beta_star
     dm = prior.mu0 - xbar
-    W0_inv = torch.linalg.inv(prior.W0)
+    W0_inv = torch.linalg.inv_ex(prior.W0)[0]
     Wstar_inv = W0_inv + n * S + (prior.beta0 * n / beta_star) * torch.outer(dm, dm)
     Wstar_inv = 0.5 * (Wstar_inv + Wstar_inv.T)
-    Wstar = torch.linalg.inv(Wstar_inv)
+    Wstar = torch.linalg.inv_ex(Wstar_inv)[0]
     Wstar = 0.5 * (Wstar + Wstar.T)
-    scale_chol = torch.linalg.cholesky(Wstar + 1e-10 * eye)
+    scale_chol = torch.linalg.cholesky_ex(Wstar + 1e-10 * eye)[0]
 
     k_lam, k_mu = prng.split(key)
     Lam = _sample_wishart(k_lam, scale_chol, nu_star)
     Lam = 0.5 * (Lam + Lam.T)
 
     # mu ~ N(mu*, (beta* Lam)^-1): x = mu* + chol(Lam)^-T z / sqrt(beta*)
-    L = torch.linalg.cholesky(Lam + 1e-10 * eye)
+    L = torch.linalg.cholesky_ex(Lam + 1e-10 * eye)[0]
     z = prng.normal(k_mu, (K,))
     step = torch.linalg.solve_triangular(L.T, z[:, None], upper=True)[:, 0]
     mu = mu_star + step / torch.sqrt(beta_star)
@@ -100,3 +105,13 @@ def sample_hyper(key: torch.Tensor, X: torch.Tensor, prior: NormalWishartPrior) 
     """Sample (mu, Lambda) from the NW conditional given latent rows X."""
     n, sx, sxx = hyper_sufficient_stats(X)
     return sample_hyper_from_stats(key, n, sx, sxx, prior)
+
+
+def hyper_ok(*hypers: HyperParams) -> torch.Tensor:
+    """0-dim bool on the device: every ``Lam`` is finite.
+
+    False when a gamma entry found no accepted proposal (``prng.gamma``
+    returns NaN there) or a factorization failed; the sweeps put it in
+    their metrics rows so the block's one read carries it.
+    """
+    return torch.stack([torch.isfinite(h.Lam).all() for h in hypers]).all()

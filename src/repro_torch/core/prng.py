@@ -27,12 +27,18 @@ is deterministic in the key, but it is not ``jax.random.gamma`` bit for
 bit: that is a rejection sampler with its own key schedule. It is the one
 draw that the parity tests replace with JAX's (they monkeypatch this
 module's ``gamma``), which is why callers reach it as ``prng.gamma``.
+
+Nothing here reads a tensor back to the host or builds a device tensor
+from host data: integer arguments enter the hash as Python ints, and the
+float constants are Python floats (exact in float32, and only multiplied,
+added or compared, never divided by), so every draw can be captured in a
+CUDA graph.
 """
 from __future__ import annotations
 
-import itertools
 import math
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -52,6 +58,11 @@ _ERFINV_LARGE = (
 # shape >= 1 a candidate is accepted with probability > 0.95, so one round
 # almost always settles every entry
 _GAMMA_CANDIDATES = 8
+# rounds of the gamma loop, all of them always drawn (see ``gamma``)
+GAMMA_ROUNDS = 2
+# the float32 constants of ``normal``: nextafter(-1, 0) and sqrt(2)
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = float(np.float32(math.sqrt(2.0)))
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -63,8 +74,8 @@ def threefry2x32(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The threefry2x32 hash (20 rounds) of counters ``(x1, x2)`` under key ``(k1, k2)``.
 
-    All four arguments are int64 tensors of uint32 values and broadcast
-    against each other.
+    All four arguments are int64 tensors of uint32 values (the counters
+    may also be Python ints) and broadcast against each other.
     """
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     x1 = (x1 + k1) & _MASK
@@ -84,11 +95,16 @@ def key(seed: int, device: str | torch.device = "cpu") -> torch.Tensor:
 
 
 def fold_in(k: torch.Tensor, data: int | torch.Tensor) -> torch.Tensor:
-    """``jax.random.fold_in``, batched: ``data`` broadcasts against ``k[..., 0]``."""
-    if not torch.is_tensor(data):
-        data = torch.tensor(int(data), dtype=torch.int64, device=k.device)
-    data = data.to(device=k.device, dtype=torch.int64) & _MASK
-    y1, y2 = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(data), data)
+    """``jax.random.fold_in``, batched: ``data`` broadcasts against ``k[..., 0]``.
+
+    An int ``data`` enters the hash as a Python int (no tensor is built
+    from it); a tensor one (a device counter) stays on the device.
+    """
+    if torch.is_tensor(data):
+        data = data.to(device=k.device, dtype=torch.int64) & _MASK
+        y1, y2 = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(data), data)
+    else:
+        y1, y2 = threefry2x32(k[..., 0], k[..., 1], 0, int(data) & _MASK)
     return torch.stack([y1, y2], dim=-1)
 
 
@@ -116,9 +132,9 @@ def uniform(
     bits = random_bits(k, shape)
     mantissa = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = mantissa.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    # JAX's lo and hi are float32 and hi - lo is taken in float32
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return (floats * float(hi - lo) + float(lo)).clamp_min(float(lo))
 
 
 def erfinv(x: torch.Tensor) -> torch.Tensor:
@@ -134,18 +150,29 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
 
 def normal(k: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``[..., 2]`` keys to ``[..., *shape]``."""
-    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
-    u = uniform(k, shape, lo, 1.0)
-    return torch.tensor(math.sqrt(2.0), dtype=torch.float32) * erfinv(u)
+    u = uniform(k, shape, _NORMAL_LO, 1.0)
+    return _SQRT2 * erfinv(u)
 
 
 def gamma(k: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """Gamma(a, 1) draws in float32, one per entry of ``a`` (Marsaglia–Tsang).
 
-    Each round draws ``_GAMMA_CANDIDATES`` proposals per entry from
-    ``fold_in(key, round)`` and keeps the first accepted one; rounds repeat
-    until every entry has one, which costs one host read per round. Shapes
-    below one are boosted: ``Gamma(a) = Gamma(a + 1) * U**(1/a)``.
+    Each of ``GAMMA_ROUNDS`` (R = 2) rounds draws ``_GAMMA_CANDIDATES``
+    (8) proposals per entry from ``fold_in(key, round)``; an entry takes
+    the first accepted proposal of the first round that has one. All R
+    rounds are drawn, whatever they accept, so the draw reads nothing back
+    to the host, and it equals a loop that stops at the first round where
+    every entry has a draw wherever that loop stops within R rounds.
+
+    Shapes below one are boosted, ``Gamma(a) = Gamma(a + 1) * U**(1/a)``,
+    so the proposals always run at a shape ``a1 >= 1``, where one is
+    rejected with probability at most 0.049 (0.0486 at ``a1 = 1``, less
+    above). An entry has no accepted proposal in R rounds with probability
+    at most ``0.049 ** (8 R) = 1.1e-21``; a sweep draws ``2 K`` entries (the
+    Bartlett shapes ``dfs / 2`` of both sides), so at K <= 128 a sweep
+    has such an entry with probability below ``3e-19``, under 1e-15. That
+    entry is NaN, never a silent 0: it makes the Wishart draw NaN, which
+    the sweep's metrics row flags and the engine raises on.
     """
     a = a.to(torch.float32)
     shape = a.shape
@@ -155,9 +182,9 @@ def gamma(k: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     d = a1 - 1.0 / 3.0
     c = torch.rsqrt(9.0 * d)
     k_rounds, k_boost = split(k)
-    out = torch.zeros_like(a)
+    out = torch.full_like(a, float("nan"))
     done = torch.zeros_like(a, dtype=torch.bool)
-    for r in itertools.count():
+    for r in range(GAMMA_ROUNDS):
         k_x, k_u = split(fold_in(k_rounds, r))
         x = normal(k_x, (_GAMMA_CANDIDATES, a.numel()))
         u = uniform(k_u, (_GAMMA_CANDIDATES, a.numel()))
@@ -169,8 +196,6 @@ def gamma(k: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
         found = ok.any(dim=0)
         out = torch.where(found & ~done, draw, out)
         done = done | found
-        if bool(done.all()):
-            break
     u_boost = uniform(k_boost, (a.numel(),))
     out = torch.where(boost, out * u_boost ** (1.0 / a), out)
     return out.reshape(shape)

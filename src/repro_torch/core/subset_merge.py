@@ -69,8 +69,8 @@ class MergeAccum(_Movable):
     chains: tuple[PosteriorAccum, ...]
 
     @property
-    def count(self) -> int:
-        """Post-burn-in samples folded per chain."""
+    def count(self) -> torch.Tensor:
+        """Post-burn-in samples folded per chain (chain 0's 0-dim int32 device counter)."""
         return self.chains[0].count
 
     @property

@@ -7,41 +7,54 @@ parallelism in the paper; the containers here encode the bucketed layout
 that turns that parallelism into one dense kernel launch per bucket.
 
 Field names and shapes follow ``repro.core.types`` so that
-``repro_torch.convert`` can carry trees across. Counters that the JAX
-package keeps on the device inside its ``lax.scan`` (the sweep index, the
-posterior sample counts) are Python ints here: the sweep loop runs on the
-host, so the burn-in predicate is known there without a device read.
-Every container has ``.to(device)``.
+``repro_torch.convert`` can carry trees across. The counters (the sweep
+index, the posterior sample counts) are 0-dim int32 tensors on the state's
+device, as the JAX package keeps them inside its ``lax.scan``: the burn-in
+gate is the device predicate ``sweep > burn_in``, so a block of sweeps
+reads nothing back to the host and can be captured as one CUDA graph
+(:mod:`repro_torch.core.sweep_graph`). Every container has ``.to(device)``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
 
-def _to(obj: Any, device: torch.device | str) -> Any:
-    """Copy of a dataclass with every tensor (also inside tuples) moved to ``device``."""
+def tensors(tree: Any) -> list[torch.Tensor]:
+    """The tensors of a container (dataclasses, tuples, tensors), in field order."""
+    if torch.is_tensor(tree):
+        return [tree]
+    if dataclasses.is_dataclass(tree):
+        return [t for f in dataclasses.fields(tree) for t in tensors(getattr(tree, f.name))]
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in tensors(v)]
+    return []
 
-    def move(v: Any) -> Any:
-        if torch.is_tensor(v):
-            return v.to(device)
-        if dataclasses.is_dataclass(v):
-            return _to(v, device)
-        if isinstance(v, tuple):
-            return tuple(move(x) for x in v)
-        return v
 
-    return dataclasses.replace(
-        obj, **{f.name: move(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
-    )
+def map_tensors(tree: Any, fn: Callable[[torch.Tensor], torch.Tensor]) -> Any:
+    """The container with ``fn`` applied to each of its tensors (structure and other fields kept)."""
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(
+            tree, **{f.name: map_tensors(getattr(tree, f.name), fn) for f in dataclasses.fields(tree)}
+        )
+    if isinstance(tree, tuple):
+        return tuple(map_tensors(v, fn) for v in tree)
+    return tree
+
+
+def counter(value: int = 0, device: torch.device | str = "cpu") -> torch.Tensor:
+    """A 0-dim int32 counter on ``device`` (filled on the device: no host copy)."""
+    return torch.full((), int(value), dtype=torch.int32, device=device)
 
 
 class _Movable:
     def to(self, device: torch.device | str):
         """This container with every tensor on ``device``."""
-        return _to(self, device)
+        return map_tensors(self, lambda t: t.to(device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,7 +99,7 @@ class BPMFState(_Movable):
     V: torch.Tensor  # [N, K] movie latents
     hyper_U: HyperParams
     hyper_V: HyperParams
-    sweep: int  # number of completed sweeps
+    sweep: torch.Tensor  # 0-dim int32, number of completed sweeps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,8 +116,8 @@ class PosteriorAccum(_Movable):
 
     U_sum: torch.Tensor  # [M, K] f32
     V_sum: torch.Tensor  # [N, K] f32
-    count: int
-    filled: int
+    count: torch.Tensor  # 0-dim int32, post-burn-in samples folded
+    filled: torch.Tensor  # 0-dim int32, window entries that hold a sample
     U_window: torch.Tensor  # [keep, M, K] f32
     V_window: torch.Tensor  # [keep, N, K] f32
 
@@ -118,8 +131,8 @@ class PosteriorAccum(_Movable):
         return PosteriorAccum(
             U_sum=torch.zeros(num_users, K, **f32),
             V_sum=torch.zeros(num_movies, K, **f32),
-            count=0,
-            filled=0,
+            count=counter(0, device),
+            filled=counter(0, device),
             U_window=torch.zeros(keep, num_users, K, **f32),
             V_window=torch.zeros(keep, num_movies, K, **f32),
         )

@@ -380,7 +380,7 @@ def bpmf_gram_fused_plain(
         n = int(np.count_nonzero(lengths > k))  # segments run longest first
         part[:n] += Z[order.start[:n].long() + k]
     part = part.float()
-    a = torch.tensor(alpha, dtype=torch.float32, device=dev)
+    a = float(alpha)  # multiplied in float32, as a float32 tensor would be
     rows = order.item.long()
     G.index_copy_(0, rows, G[rows] + a * part[:, :K, :K])
     g.index_copy_(0, rows, g[rows] + a * part[:, :K, K])

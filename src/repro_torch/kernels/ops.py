@@ -190,7 +190,7 @@ def bpmf_gram_step(
             G, g, X_src, layout.nbr, layout.val, layout.item, layout.cnt,
             alpha, compute_dtype, layout.order,
         )
-    a = torch.tensor(alpha, dtype=torch.float32, device=G.device)
+    a = float(alpha)  # a float32 multiplier: the same product as a float32 tensor's, no host copy
     for b in buckets:
         Gb, gb = bpmf_gram(X_src, b.nbr, b.val, b.nnz, compute_dtype=compute_dtype, impl=gram_impl)
         live = (b.item_ids >= 0).to(torch.float32)

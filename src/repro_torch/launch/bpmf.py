@@ -6,6 +6,7 @@
     PYTHONPATH=src python -m repro_torch.launch.bpmf --device cpu --backend posterior_merge --num-partitions 2
     PYTHONPATH=src python -m repro_torch.launch.bpmf --dataset movielens --dataset-path ratings.csv
     PYTHONPATH=src python -m repro_torch.launch.bpmf --device cpu --checkpoint-dir /tmp/ck --checkpoint-every 2
+    PYTHONPATH=src python -m repro_torch.launch.bpmf --device cpu --pipeline-blocks 2 --donate-blocks off
     PYTHONPATH=src python -m repro_torch.launch.bpmf --device cpu --checkpoint-dir /tmp/ck --resume \
         --export-artifact /tmp/art
 
@@ -20,7 +21,10 @@ request. The flags are those of ``python -m repro.launch.bpmf`` that this
 port runs, with the same names and defaults, plus ``--device``.
 The ring backends put shard d on card ``d % n`` of the n visible cards, so
 ``--num-shards 4`` on one card runs all four shards there; ``posterior_merge``
-places its chains the same way.
+places its chains the same way. On one card every backend replays its sweep
+as a captured CUDA graph; ``--pipeline-blocks`` and ``--donate-blocks`` set
+the block queue's depth and whether blocks hand back the graph's buffers or
+copies (the same samples either way).
 """
 from __future__ import annotations
 
@@ -48,6 +52,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sweeps", type=int, default=50)
     p.add_argument("--sweeps-per-block", type=int, default=8,
                    help="Gibbs sweeps between host reads of the metrics (same samples)")
+    p.add_argument("--pipeline-blocks", type=int, default=1,
+                   help="block dispatch queue depth: dispatch the next block before "
+                        "reading the previous block's metrics (1 = synchronous; same "
+                        "samples at every depth)")
+    p.add_argument("--donate-blocks", default="auto", choices=["auto", "on", "off"],
+                   help="hand the captured sweep's buffers back as the next carry "
+                        "(off = copies every block; same samples)")
     p.add_argument("--burn-in", type=int, default=8)
     p.add_argument("--seed", type=int, default=0, help="split + sampler seed")
     p.add_argument("--num-shards", type=int, default=0,
@@ -102,6 +113,8 @@ def main(argv: list[str] | None = None) -> int:
         alpha=args.alpha,
         num_sweeps=args.sweeps,
         sweeps_per_block=args.sweeps_per_block,
+        pipeline_blocks=args.pipeline_blocks,
+        donate_blocks=args.donate_blocks,
         burn_in=args.burn_in,
         seed=args.seed,
         checkpoint_dir=args.checkpoint_dir,

@@ -23,9 +23,18 @@ from a starting G that is not symmetric, with alpha = 2.
 
 The checkpoint and serving slice on the card: a run saved at sweep 2 and
 restored (in a fresh engine and in the same one) continues bit for bit as
-the uninterrupted run, for ``sequential`` and a 2-shard ``ring``; an
-exported artifact served from the card answers as the engine's predictor
+the uninterrupted run, for ``sequential``, a 2-shard ``ring`` and
+2-chain ``posterior_merge``; an exported artifact (the sequential one and
+the merged one) served from the card answers as the engine's predictor
 does, and coalesced requests answer as isolated ones, bit for bit.
+
+The sweep as one device program: for each backend, a block replayed from
+its captured CUDA graph equals the eager loop bit for bit (every tensor of
+the carry and every metrics row), with the eager loop's Gram launches per
+sweep; a replay from a carry that is not the graph's own (a restored one)
+refills the static buffers first; ``donate_blocks="off"`` hands back
+copies that the next block leaves alone; and an eager block runs under
+``torch.cuda.set_sync_debug_mode("error")``, so it has no hidden host read.
 """
 import threading
 
@@ -34,6 +43,7 @@ import pytest
 import torch
 
 from repro_torch.bpmf import BPMFConfig, BPMFEngine, load_dataset
+from repro_torch.core import sweep_graph
 from repro_torch.core.types import Bucket
 from repro_torch.kernels import bpmf_gram as gram_kernel
 from repro_torch.kernels import ops
@@ -291,14 +301,14 @@ def _checkpointed_run(name: str, directory: str | None):
     """(config, ratings) of a 6-sweep run that saves every 2 sweeps into ``directory``."""
     coo = load_dataset("synthetic", num_users=300, num_movies=200, nnz=8000, noise_std=0.3, seed=5)
     cfg = BPMFConfig().replace(
-        name=name, num_shards=2, K=16, num_sweeps=6, burn_in=1, sweeps_per_block=2,
+        name=name, num_shards=2, num_partitions=2, K=16, num_sweeps=6, burn_in=1, sweeps_per_block=2,
         checkpoint_dir=directory, checkpoint_every=2, bucket_pads=(8, 32, 128),
     )
     return cfg, coo
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["sequential", "ring"])
+@pytest.mark.parametrize("name", ["sequential", "ring", "posterior_merge"])
 def test_checkpoint_resume_is_bit_identical_on_card(cuda, tmp_path, name):
     cfg, coo = _checkpointed_run(name, str(tmp_path))
     full = BPMFEngine(cfg).fit(coo)  # saves at sweeps 2, 4 and 6
@@ -317,8 +327,9 @@ def test_checkpoint_resume_is_bit_identical_on_card(cuda, tmp_path, name):
 
 
 @pytest.mark.cuda
-def test_served_answers_are_the_engines_and_coalesce_bit_for_bit(cuda, tmp_path):
-    cfg, coo = _checkpointed_run("sequential", None)
+@pytest.mark.parametrize("name", ["sequential", "posterior_merge"])
+def test_served_answers_are_the_engines_and_coalesce_bit_for_bit(cuda, tmp_path, name):
+    cfg, coo = _checkpointed_run(name, None)
     engine = BPMFEngine(cfg.replace(keep_factor_samples=4, checkpoint_every=0)).fit(coo)
     path = engine.export(str(tmp_path / "art"))
     served = PosteriorPredictor.load(path, device="cuda")
@@ -356,3 +367,78 @@ def test_served_answers_are_the_engines_and_coalesce_bit_for_bit(cuda, tmp_path)
             t.join(timeout=120)
         assert srv.batcher.stats()["coalesced_requests"] > 0
     assert results == [(200, want) for want in expected]
+
+
+def _fresh_carry(engine):
+    b = engine.backend
+    return b.init_state(engine._k_init), b.init_pred(), b.init_accum()
+
+
+def _assert_same_bits(got, want):
+    a, b = sweep_graph.tensors(got), sweep_graph.tensors(want)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sequential", "ring", "ring_async", "allgather", "posterior_merge"])
+def test_captured_block_equals_eager_bit_for_bit(cuda, name):
+    cfg, coo = _checkpointed_run(name, None)
+    engine = BPMFEngine(cfg.replace(checkpoint_every=0, pipeline_depth=2))
+    engine.prepare(coo)
+    b = engine.backend
+    assert b.captures() and b.graph is None
+    before = sweep_graph.launch_counts()
+    eager = b.sweep_block(engine._k_run, *_fresh_carry(engine), 4, _eager=True)
+    eager_counts = {k: v - before[k] for k, v in sweep_graph.launch_counts().items()}
+    # the eager loop updates the accumulator in place: continue from a copy
+    eager2 = b.sweep_block(engine._k_run, *sweep_graph.map_tensors(eager[:3], torch.clone), 2, _eager=True)
+    captured = b.sweep_block(engine._k_run, *_fresh_carry(engine), 4)
+    assert b.graph is not None and b.graph.replays == 4
+    _assert_same_bits(captured, eager)
+    assert {k: 4 * v for k, v in b.graph.launches_per_replay.items()} == eager_counts
+    assert sum(eager_counts.values()) > 0
+    # the next block continues from the graph's own (donated) buffers
+    again = b.sweep_block(engine._k_run, *captured[:3], 2)
+    assert sweep_graph.tensors(again[0])[0] is sweep_graph.tensors(captured[0])[0]
+    _assert_same_bits(again, eager2)
+    assert torch.equal(again[3][:, 2].cpu(), torch.tensor([5.0, 6.0]))
+    assert not again[3][:, 3].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sequential", "posterior_merge"])
+def test_replay_refills_the_static_buffers_from_a_restored_carry(cuda, name):
+    cfg, coo = _checkpointed_run(name, None)
+    engine = BPMFEngine(cfg.replace(checkpoint_every=0, donate_blocks="off"))
+    engine.prepare(coo)
+    b = engine.backend
+    first = b.sweep_block(engine._k_run, *_fresh_carry(engine), 2)
+    kept = sweep_graph.map_tensors(first[:3], torch.clone)
+    second = b.sweep_block(engine._k_run, *first[:3], 2)
+    # "off" handed back copies: the second block left the first's carry alone
+    _assert_same_bits(first[:3], kept)
+    # a carry from the host (as restore() builds it) replays as the original did
+    host = sweep_graph.map_tensors(kept, lambda t: t.cpu())
+    restored = sweep_graph.map_tensors(host, lambda t: t.to(cuda))
+    _assert_same_bits(b.sweep_block(engine._k_run, *restored, 2), second)
+    assert b.graph.replays == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sequential", "ring", "posterior_merge"])
+def test_eager_block_has_no_hidden_sync(cuda, name):
+    cfg, coo = _checkpointed_run(name, None)
+    engine = BPMFEngine(cfg.replace(checkpoint_every=0))
+    engine.prepare(coo)
+    b = engine.backend
+    carry = _fresh_carry(engine)
+    carry = b.sweep_block(engine._k_run, *carry, 1, _eager=True)[:3]  # builds the kernels, the handles
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = b.sweep_block(engine._k_run, *carry, 2, _eager=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(out[3]).all()

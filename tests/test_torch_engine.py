@@ -162,8 +162,10 @@ def test_unported_features_raise_naming_the_roadmap_item():
     for name in ("ring", "ring_async", "allgather", "posterior_merge"):
         assert BPMFEngine(BPMFConfig().replace(name=name), device="cpu").backend.name == name
     assert available_backends() == ["allgather", "posterior_merge", "ring", "ring_async", "sequential"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        BPMFConfig().replace(pipeline_blocks=2)
+    # pipeline_blocks > 1 runs (tests/test_torch_pipeline.py holds it to depth 1)
+    piped = BPMFEngine(BPMFConfig().replace(pipeline_blocks=2, K=4, num_sweeps=3, sweeps_per_block=1),
+                       device="cpu").fit(load_dataset("synthetic", num_users=40, num_movies=20, nnz=300))
+    assert piped.num_sweeps_done == 3 and [m.sweep for m in piped.history] == [1.0, 2.0, 3.0]
     # checkpoints and export are ported (Queue 1 items 5 and 6): an engine
     # with a checkpoint directory constructs, and without data its calls
     # raise for the missing data, not for a missing port
@@ -185,12 +187,16 @@ def test_unported_features_raise_naming_the_roadmap_item():
 
 
 def test_cli_runs_on_cpu(capsys):
-    assert cli.main([
-        "--device", "cpu", "--sweeps", "3", "--burn-in", "1", "--K", "4",
-        "--users", "60", "--movies", "30", "--nnz", "600", "--sweeps-per-block", "2",
-    ]) == 0
+    args = ["--device", "cpu", "--sweeps", "3", "--burn-in", "1", "--K", "4",
+            "--users", "60", "--movies", "30", "--nnz", "600", "--sweeps-per-block", "2"]
+    assert cli.main(args) == 0
     out = capsys.readouterr().out
     assert "device=cpu" in out and out.count("sweep ") == 3 and "final rmse(avg)=" in out
+    # the queue and the donation flags give the same run
+    assert cli.main(args + ["--sweeps-per-block", "1", "--pipeline-blocks", "2", "--donate-blocks", "off"]) == 0
+    assert capsys.readouterr().out.splitlines()[1:4] == out.splitlines()[1:4]
+    parsed = cli.build_parser().parse_args(["--pipeline-blocks", "4", "--donate-blocks", "on"])
+    assert (parsed.pipeline_blocks, parsed.donate_blocks) == (4, "on")
 
 
 def test_cli_runs_posterior_merge_on_cpu(capsys):
