@@ -116,6 +116,8 @@ import dataclasses
 import json
 import math
 import re
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -436,6 +438,18 @@ def timed_save(engine) -> dict:
     return {"step": step, "save_return_ms": 1e3 * (t1 - t0), "wait_ms": 1e3 * (t2 - t1)}
 
 
+def history_rows(history):
+    """``[n, 3]`` float32 rows ``(rmse_sample, rmse_avg, sweep)`` of a run's metrics, as its checkpoint keeps them."""
+    import numpy as np
+
+    return np.asarray([[m.rmse_sample, m.rmse_avg, m.sweep] for m in history], np.float32).reshape(-1, 3)
+
+
+def ml20m_config(BPMFConfig, checkpoint_dir: str):
+    """The engine config of every ML20M run: K = 32, 4 sweeps in blocks of 2, burn-in 1."""
+    return BPMFConfig().replace(K=32, num_sweeps=4, burn_in=1, sweeps_per_block=2, checkpoint_dir=checkpoint_dir)
+
+
 def phase_ml20m(torch, gram_kernel, repro_torch_mods, ckpt_root: Path) -> dict:
     from repro_torch.core import sweep_graph
 
@@ -443,8 +457,7 @@ def phase_ml20m(torch, gram_kernel, repro_torch_mods, ckpt_root: Path) -> dict:
     t0 = time.perf_counter()
     coo, _ = synthetic_ratings(ML20M_LIKE)
     generate_s = time.perf_counter() - t0
-    cfg = BPMFConfig().replace(K=32, num_sweeps=4, burn_in=1, sweeps_per_block=2,
-                               checkpoint_dir=str(ckpt_root / "ml20m"))
+    cfg = ml20m_config(BPMFConfig, str(ckpt_root / "ml20m"))
     engine = BPMFEngine(cfg)
     engine.prepare(coo)
     data = engine.backend.data
@@ -814,6 +827,8 @@ def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict, ckpt_root: Path) 
             t_prev = now
     counts = {name: getattr(gram_kernel, name) for name in COUNTERS}
     peak = torch.cuda.max_memory_allocated()
+    # what the 2-process ring of multiproc_ring must reproduce, bit for bit
+    reference = {"hist": history_rows(engine.history), "factors": engine.factors()}
     rmse = [m.rmse_sample for m in engine.history]
     gap = [abs(a - b_) for a, b_ in zip(rmse, ml["rmse_sample"])]
     swept = engine.num_sweeps_done + sweep_graph.WARMUP_SWEEPS  # the capture's warm-up too
@@ -847,6 +862,7 @@ def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict, ckpt_root: Path) 
             b.data, mcfg, b.ring, 2)
         rows = rows.cpu().numpy()
         secs = (time.perf_counter() - t0) / 2
+        reference[mode] = {"rows": rows, "factors": b.factors(st)}
         diff = max(float((x - y).abs().max()) for xs, ys in ((st.U, after_block1.U), (st.V, after_block1.V))
                    for x, y in zip(xs, ys))
         print(json.dumps({"phase": "ring_variant", "comm_mode": mode, "pipeline_depth": depth,
@@ -857,6 +873,7 @@ def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict, ckpt_root: Path) 
         del st
     return {"engine": engine, "launches": counts["FUSED_LAUNCHES"],
             "reduce_launches": counts["FUSED_REDUCE_LAUNCHES"], "save": save, "peak": peak,
+            "reference": reference,
             "expected_per_sweep": {"FUSED_LAUNCHES": expected_per_sweep, "FUSED_REDUCE_LAUNCHES": split_layouts},
             "steady_sweep_s": block_s[-1] / cfg.run.sweeps_per_block}
 
@@ -1302,7 +1319,374 @@ def phase_small_task(np, gram_kernel, BPMFConfig, BPMFEngine, load_dataset, subs
         raise AssertionError(f"posterior_merge at P = {failed} failed its small-task gates: {line}")
 
 
+MP_PROCESSES = 2  # the gang of multiproc_ring: two processes sharing the one card over gloo
+MP_TIMEOUT_S = 600
+MP_CHUNK_ROWS = 1_000_000
+ELASTIC_ARGS = ["--backend", "ring", "--num-shards", "4", "--users", "96", "--movies", "64",
+                "--nnz", "1500", "--K", "8", "--sweeps", "6", "--burn-in", "2", "--sweeps-per-block", "1"]
+
+
+def child_env(**extra) -> dict:
+    """The environment of a child process: this checkout's sources first, no inherited job."""
+    import os
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("REPRO_COORDINATOR", "REPRO_NUM_PROCESSES", "REPRO_PROCESS_ID")}
+    env["PYTHONPATH"] = os.pathsep.join([str(SRC), env.get("PYTHONPATH", "")]).rstrip(os.pathsep)
+    env.update(extra)
+    return env
+
+
+def files_equal(a: Path, b: Path) -> dict:
+    """Whether two directory trees hold the same files with the same bytes (by relative path)."""
+    fa = {p.relative_to(a): p.read_bytes() for p in sorted(a.rglob("*")) if p.is_file()}
+    fb = {p.relative_to(b): p.read_bytes() for p in sorted(b.rglob("*")) if p.is_file()}
+    return {"files": len(fa), "same_names": sorted(fa) == sorted(fb),
+            "same_bytes": sorted(fa) == sorted(fb) and all(fa[k] == fb[k] for k in fa)}
+
+
+def mp_worker(tmp: Path, rank: int, world: int, port: int, device: str) -> int:
+    """One process of the multiproc_ring gang: the ML20M ring (S = 4), its variants and the merge (P = 4).
+
+    First every rank builds the kernel library into one fresh directory at
+    the same moment (the build's atomic rename must cover it). Then it
+    streams the ratings the main process wrote (``ChunkedRatings`` over the
+    files), builds only its own shards, runs every mode from the seed's
+    start, and writes what the main process compares (every rank gathers
+    the whole factors). Prints one JSON line per phase.
+    """
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.hostdevices import init_multiprocess, shutdown
+
+    init_multiprocess(f"127.0.0.1:{port}", world, rank, device=device, timeout_s=MP_TIMEOUT_S)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.bpmf import BPMFConfig, BPMFEngine
+    from repro_torch.core import distributed as dist
+    from repro_torch.data.sparse import ChunkedRatings, RatingsCOO
+    from repro_torch.kernels import bpmf_gram as gram_kernel
+    from repro_torch.kernels import build
+
+    if device == "cuda":
+        build._BUILD = tmp / "concurrent_build"
+        torch.distributed.barrier()
+        built = build.load_library("bpmf_gram")
+        print(json.dumps({"phase": "multiproc_build", "rank": rank, "nvcc_seconds": built.seconds,
+                          "library": built.path.name}), flush=True)
+
+    dims = json.loads((tmp / "ml20m.json").read_text())
+    cols = {k: np.load(tmp / f"ml20m_{k}.npy", mmap_mode="r") for k in ("rows", "cols", "vals")}
+
+    def chunks():
+        for lo in range(0, dims["nnz"], MP_CHUNK_ROWS):
+            hi = min(lo + MP_CHUNK_ROWS, dims["nnz"])
+            yield RatingsCOO(*(np.asarray(cols[k][lo:hi]) for k in ("rows", "cols", "vals")),
+                             dims["num_users"], dims["num_movies"])
+
+    stream = ChunkedRatings(chunks, dims["num_users"], dims["num_movies"], dims["nnz"], MP_CHUNK_ROWS)
+    out = {}
+
+    def reset():
+        for name in COUNTERS:
+            setattr(gram_kernel, name, 0)
+        torch.cuda.synchronize()
+
+    def counts():
+        return {name: getattr(gram_kernel, name) for name in COUNTERS}
+
+    # the ring, S = 4: two shards on each rank, saving at sweep 2 as the single run does
+    cfg = ml20m_config(BPMFConfig, str(tmp / "mp_ring")).replace(name="ring", num_shards=RING_SHARDS)
+    engine = BPMFEngine(cfg, device=device)
+    t0 = time.perf_counter()
+    engine.prepare(stream)
+    build_s = time.perf_counter() - t0
+    b = engine.backend
+    per_sweep = b.data.fused_launches_per_sweep()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    ring = b.ring
+    ring.host_bytes, ring.host_seconds = 0, 0.0
+    block_s, staged, save_ms = [], [], None
+    t_prev = time.perf_counter()
+    for m in engine.sample():
+        if m.sweep % cfg.run.sweeps_per_block == 0:
+            now = time.perf_counter()
+            block_s.append(now - t_prev)
+            staged.append((ring.host_bytes, ring.host_seconds))
+            if m.sweep == CHECKPOINT_AT:
+                engine.save()  # a collective, written before it returns
+                save_ms = 1e3 * (time.perf_counter() - now)
+                now = time.perf_counter()
+            ring.host_bytes, ring.host_seconds = 0, 0.0
+            t_prev = now
+    ring_counts = counts()
+    peak = torch.cuda.max_memory_allocated()
+    U, V = engine.factors()
+    out.update(ring_hist=history_rows(engine.history), ring_U=U, ring_V=V)
+    spb = cfg.run.sweeps_per_block
+    print(json.dumps({
+        "phase": "multiproc_ring", "rank": rank, "processes": world, "mode": "ring",
+        "backend": torch.distributed.get_backend(), "device": str(ring.home),
+        "local_shards": list(ring.local_shards), "local_nnz": b.plan.local_nnz, "total_nnz": b.plan.total_nnz,
+        "build_seconds": build_s, **{f"{k}_seconds": v for k, v in b.prepare_seconds.items()},
+        "seconds_per_eager_sweep_by_block": [x / spb for x in block_s],
+        "host_staged_bytes_per_sweep_by_block": [x / spb for x, _ in staged],
+        "host_staged_ms_per_sweep_by_block": [1e3 * y / spb for _, y in staged],
+        "save_ms": save_ms, "counts": ring_counts, "expected_fused_launches": per_sweep * engine.num_sweeps_done,
+        "max_memory_allocated_bytes": peak,
+    }), flush=True)
+    # on a card the kernels launch; a CPU rehearsal of this worker runs their plain versions
+    fused, plain = ("FUSED_LAUNCHES", "FUSED_PLAIN_CALLS") if device == "cuda" else ("FUSED_PLAIN_CALLS", "FUSED_LAUNCHES")
+    if ring_counts[fused] != per_sweep * engine.num_sweeps_done or ring_counts["PLAIN_CALLS"] \
+            or ring_counts[plain] or ring_counts["LAUNCHES"]:
+        raise AssertionError(f"rank {rank}: ring kernel launches {ring_counts}, want {per_sweep} fused per sweep")
+    if not 0 < b.plan.local_nnz < b.plan.total_nnz:
+        raise AssertionError(f"rank {rank} holds {b.plan.local_nnz} of {b.plan.total_nnz} training ratings")
+    out["ring_fused_launches"] = ring_counts[fused]
+
+    # ring_async (depth 2) and allgather, 2 sweeps each from the same start
+    for mode, depth in (("ring_async", 2), ("allgather", 1)):
+        mcfg = dataclasses.replace(b.core_cfg, comm_mode=mode, pipeline_depth=depth)
+        ring.host_bytes, ring.host_seconds = 0, 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _, _, rows = dist.dist_gibbs_sweep_block(
+            engine._k_run, b.init_state(engine._k_init), b.init_pred(), b.init_accum(), b.data, mcfg, ring, 2)
+        rows = rows.cpu().numpy()
+        secs = (time.perf_counter() - t0) / 2
+        U, V = b.factors(st)
+        out.update({f"{mode}_rows": rows, f"{mode}_U": U, f"{mode}_V": V})
+        print(json.dumps({"phase": "multiproc_ring", "rank": rank, "mode": mode, "pipeline_depth": depth,
+                          "seconds_per_eager_sweep": secs, "host_staged_bytes_per_sweep": ring.host_bytes / 2,
+                          "host_staged_ms_per_sweep": 1e3 * ring.host_seconds / 2}), flush=True)
+        del st
+    del engine, b, ring
+    torch.cuda.empty_cache()
+
+    # posterior_merge, P = 4: chains 0 and 2 on rank 0, 1 and 3 on rank 1
+    mcfg = ml20m_config(BPMFConfig, str(tmp / "mp_merge")).replace(
+        name="posterior_merge", num_partitions=MERGE_PARTITIONS, partition_strategy="lpt", merge_method="precision")
+    engine = BPMFEngine(mcfg, device=device)
+    t0 = time.perf_counter()
+    engine.prepare(stream)
+    build_s = time.perf_counter() - t0
+    mb = engine.backend
+    buckets = sum(len(mb.chain_data[c].users.buckets) + len(mb.chain_data[c].movies.buckets)
+                  for c in mb._local_chains)
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    block_s = []
+    t_prev = time.perf_counter()
+    for m in engine.sample():
+        if m.sweep % mcfg.run.sweeps_per_block == 0:
+            now = time.perf_counter()
+            block_s.append(now - t_prev)
+            t_prev = now
+    merge_counts = counts()
+    peak = torch.cuda.max_memory_allocated()
+    engine.export(str(tmp / "mp_merge_artifact"))  # rank 0 writes; a barrier follows
+    out["merge_hist"] = history_rows(engine.history)
+    print(json.dumps({
+        "phase": "multiproc_merge", "rank": rank, "local_chains": mb._local_chains, "build_seconds": build_s,
+        "seconds_per_eager_sweep_by_block": [x / mcfg.run.sweeps_per_block for x in block_s],
+        "counts": merge_counts, "expected_launches": buckets * engine.num_sweeps_done,
+        "max_memory_allocated_bytes": peak,
+    }), flush=True)
+    gram, plain = ("LAUNCHES", "PLAIN_CALLS") if device == "cuda" else ("PLAIN_CALLS", "LAUNCHES")
+    if merge_counts[gram] != buckets * engine.num_sweeps_done or merge_counts[plain] \
+            or merge_counts["FUSED_LAUNCHES"]:
+        raise AssertionError(f"rank {rank}: merge kernel launches {merge_counts}, want {buckets} per sweep")
+    out["merge_launches"] = merge_counts[gram]
+    np.savez(tmp / f"mp_rank{rank}.npz", **out)
+    shutdown()
+    return 0
+
+
+def phase_multiproc(torch, np, ml: dict, ring: dict, tmp: Path, card: str, device: str = "cuda") -> dict:
+    """``multiproc_ring``: the gang of two processes on this card, held to the single process's ring bit for bit."""
+    import subprocess
+
+    coo = ml["coo"]
+    for k in ("rows", "cols", "vals"):
+        np.save(tmp / f"ml20m_{k}.npy", getattr(coo, k))
+    (tmp / "ml20m.json").write_text(json.dumps(
+        {"num_users": coo.num_users, "num_movies": coo.num_movies, "nnz": coo.nnz}))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mp-worker", str(tmp),
+                               str(r), str(MP_PROCESSES), str(port), device],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=child_env())
+             for r in range(MP_PROCESSES)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    lines = [json.loads(line) for out in outs for line in out.splitlines() if line.startswith("{")]
+    for line in lines:
+        print(json.dumps({**line, "card": card}), flush=True)
+    if any(p.returncode for p in procs):
+        dump = "\n".join(f"--- rank {r} ---\n{o[-4000:]}" for r, o in enumerate(outs))
+        raise AssertionError(f"the multiproc_ring gang failed {[p.returncode for p in procs]}:\n{dump}")
+    ranks = [dict(np.load(tmp / f"mp_rank{r}.npz")) for r in range(MP_PROCESSES)]
+    ref = ring["reference"]
+
+    def same(a, b) -> bool:
+        return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+    identical = {}
+    for r, got in enumerate(ranks):
+        identical[f"rank{r}"] = {
+            "ring_metrics": same(got["ring_hist"], ref["hist"]),
+            "ring_U": same(got["ring_U"], ref["factors"][0]), "ring_V": same(got["ring_V"], ref["factors"][1]),
+            **{f"{mode}_{k}": same(got[f"{mode}_{k}"], want)
+               for mode in ("ring_async", "allgather")
+               for k, want in (("rows", ref[mode]["rows"]), ("U", ref[mode]["factors"][0]),
+                               ("V", ref[mode]["factors"][1]))},
+        }
+    print(json.dumps({"phase": "multiproc_ring", "card": card, "processes": MP_PROCESSES,
+                      "gang_wall_seconds": wall, "bit_identical_to_one_process": identical}), flush=True)
+    if not all(v for per_rank in identical.values() for v in per_rank.values()):
+        raise AssertionError(f"the 2-process ring differs from the 1-process ring: {identical}")
+    return {"ranks": ranks, "tmp": tmp, "lines": lines, "wall": wall,
+            "ring_launches": [int(x["ring_fused_launches"]) for x in ranks],
+            "merge_launches": [int(x["merge_launches"]) for x in ranks]}
+
+
+def phase_multiproc_resume(torch, np, gram_kernel, engine, ring: dict, mp: dict, card: str) -> None:
+    """``multiproc_resume``: this single process restores the gang's sweep-2 checkpoint; sweeps 3-4 bit for bit."""
+    ckpt = mp["tmp"] / "mp_ring"
+    step_dir = ckpt / f"step_{CHECKPOINT_AT:08d}"
+    shard_files = sorted(f.name for f in step_dir.iterdir() if ".shard-" in f.name)
+    engine.cfg = engine.cfg.replace(checkpoint_dir=str(ckpt))
+    engine._ckpt = None  # the manager of the gang's directory
+    for name in COUNTERS:
+        setattr(gram_kernel, name, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = engine.restore(step=CHECKPOINT_AT)
+    t1 = time.perf_counter()
+    for _ in engine.sample():
+        pass
+    t2 = time.perf_counter()
+    counts = {name: getattr(gram_kernel, name) for name in COUNTERS}
+    U, V = engine.factors()
+    ref = ring["reference"]
+    identical = {"metrics": history_rows(engine.history).tobytes() == ref["hist"].tobytes(),
+                 "U": U.tobytes() == ref["factors"][0].tobytes(), "V": V.tobytes() == ref["factors"][1].tobytes()}
+    print(json.dumps({"phase": "multiproc_resume", "card": card, "step": step, "written_by_processes": MP_PROCESSES,
+                      "shard_files": shard_files, "restore_ms": 1e3 * (t1 - t0), "resumed_seconds": t2 - t1,
+                      "counts": counts, "bit_identical": identical}), flush=True)
+    if not shard_files or not all(identical.values()):
+        raise AssertionError(f"multiproc_resume: the resumed sweeps differ from the uninterrupted run: {identical}")
+    launched, plain = ("FUSED_LAUNCHES", "FUSED_PLAIN_CALLS") if engine.device.type == "cuda" else (
+        "FUSED_PLAIN_CALLS", "FUSED_LAUNCHES")
+    if not counts[launched] or counts["PLAIN_CALLS"] or counts[plain]:
+        raise AssertionError(f"multiproc_resume: kernel launches {counts}")
+
+
+def phase_multiproc_merge(np, engine, mp: dict, artifact: Path, card: str) -> None:
+    """The gang's ``posterior_merge`` (P = 4, two chains per rank) against this process's: metrics and artifact bit for bit."""
+    want = history_rows(engine.history)
+    identical = {f"rank{r}_metrics": got["merge_hist"].tobytes() == want.tobytes()
+                 for r, got in enumerate(mp["ranks"])}
+    art = files_equal(mp["tmp"] / "mp_merge_artifact", artifact)
+    identical["artifact"] = art["same_bytes"]
+    print(json.dumps({"phase": "multiproc_merge", "card": card, "artifact_files": art["files"],
+                      "bit_identical_to_one_process": identical}), flush=True)
+    if not all(identical.values()):
+        raise AssertionError(f"the 2-process merge differs from the 1-process merge: {identical}")
+
+
+def phase_elastic(tmp: Path, card: str, device: str = "cuda") -> None:
+    """``elastic``: the launcher with the last of 2 ranks killed at sweep 3 restarts at 1 process, same samples."""
+    import subprocess
+
+    def launch(own: list[str], fwd: list[str]) -> tuple[str, float]:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.multiproc", *own, "--", "--device", device,
+                            *ELASTIC_ARGS, *fwd],
+                           capture_output=True, text=True, env=child_env(), timeout=MP_TIMEOUT_S)
+        if r.returncode:
+            raise AssertionError(f"elastic: launcher exit {r.returncode}:\n{r.stdout[-4000:]}\n{r.stderr[-2000:]}")
+        return r.stdout, time.perf_counter() - t0
+
+    ref, ref_s = launch(["--num-processes", "1"], ["--export-artifact", str(tmp / "ref")])
+    out, el_s = launch(["--num-processes", "2", "--elastic", "--max-restarts", "2", "--timeout", "300"],
+                       ["--checkpoint-dir", str(tmp / "ck"), "--checkpoint-every", "2", "--inject-failure", "3",
+                        "--export-artifact", str(tmp / "art")])
+    summary = dict(kv.split("=") for kv in out.strip().splitlines()[-1].split()[2:])
+    art = files_equal(tmp / "art", tmp / "ref")
+    checks = {"killed_rank_1_at_sweep_3": "injected failure at sweep 3 on process 1" in out,
+              "restarted_at_1_process": "elastic restart: 1 processes" in out,
+              "resumed_at_sweep_2": "resumed from checkpoint at sweep 2" in out,
+              "artifact_bit_identical": art["same_bytes"]}
+    print(json.dumps({"phase": "elastic", "card": card, "restarts": int(summary["restarts"]),
+                      "seconds_lost": float(summary["lost_seconds"]), "uninterrupted_seconds": ref_s,
+                      "elastic_seconds": el_s, "artifact_files": art["files"], "checks": checks}), flush=True)
+    if not all(checks.values()) or int(summary["restarts"]) != 1:
+        raise AssertionError(f"elastic: {checks}, {summary}\n{out[-4000:]}")
+
+
+def phase_sharded_topk(torch, np, engine, card: str, device: str = "cuda") -> None:
+    """``sharded_topk``: the ML20M posterior's V in 4 item shards on this card against the replicated scan."""
+    from repro_torch.serve import PosteriorPredictor
+    from repro_torch.serve.predictor import serve_devices
+
+    meta, arrays = engine._artifact_payload()
+    p = PosteriorPredictor(meta, arrays, device, topk_mode="sharded", item_devices=serve_devices(4, device))
+    per = -(-meta.num_movies // 4)
+    users = np.random.default_rng(7).integers(0, meta.num_users, 1000)
+    got = p.top_k(users, 10, sharded=True)
+    want = p.top_k(users, 10, sharded=False)
+    identical = {"ids": got[0].tobytes() == want[0].tobytes(), "scores": got[1].tobytes() == want[1].tobytes()}
+    sharded_ms = 1e3 * statistics.median(timed(lambda: p.top_k(users, 10, sharded=True)) for _ in range(5))
+    replicated_ms = 1e3 * statistics.median(timed(lambda: p.top_k(users, 10, sharded=False)) for _ in range(5))
+    print(json.dumps({"phase": "sharded_topk", "card": card, "users": len(users), "k": 10,
+                      "items": meta.num_movies, "item_shards": len(p.item_devices),
+                      "shard_rows": [max(0, min(per, meta.num_movies - i * per)) for i in range(4)],
+                      "sharded_ms": sharded_ms, "replicated_ms": replicated_ms, "bit_identical": identical}),
+          flush=True)
+    if not all(identical.values()):
+        raise AssertionError(f"sharded top-k differs from the replicated scan: {identical}")
+
+
+def timed(fn) -> float:
+    """Host seconds of one call (the call returns host arrays, so the device has finished)."""
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def run_merge_phases(torch, np, gram_kernel, BPMFEngine, subset_merge, ml: dict, heldout, seq_rmse: float,
+                     mp: dict, card: str) -> dict:
+    """The ML20M ``posterior_merge`` phases, then the gang's merge held to this one bit for bit."""
+    t_merge = time.perf_counter()
+    baseline = subset_merge.column_mean_rmse(ml["coo"], ml["cfg"].run.test_fraction, ml["cfg"].run.seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-merge-") as tmp_name:
+        merge = phase_merge(torch, gram_kernel, BPMFEngine, ml, Path(tmp_name))
+        phase_graph_sweeps(torch, merge["engine"], merge, f"posterior_merge P={MERGE_PARTITIONS}", card)
+        phase_checkpoint(torch, np, gram_kernel, merge["engine"], merge, "merge_checkpoint", card)
+        phase_merge_export(torch, np, merge["engine"], heldout, seq_rmse, baseline, Path(tmp_name), card,
+                           subset_merge.MERGE_DEGRADATION_MAX)
+        phase_multiproc_merge(np, merge["engine"], mp, Path(tmp_name) / "merge_artifact", card)
+    phase_merge_buckets(torch, gram_kernel, merge["engine"])
+    merge["seconds"] = time.perf_counter() - t_merge
+    return merge
+
+
 def main() -> int:
+    if len(sys.argv) == 7 and sys.argv[1] == "--mp-worker":  # one process of multiproc_ring's gang
+        return mp_worker(Path(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]), sys.argv[6])
     if not (SRC / "repro_torch" / "kernels" / "csrc" / "bpmf_gram.cu").is_file():
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it from the repository",
               file=sys.stderr)
@@ -1344,6 +1728,7 @@ def main() -> int:
         phase_fused_one_shard(torch, gram_kernel, ops, ml["engine"])
         phase_requests(torch, np, ml["engine"])
         phase_serve(torch, np, gram_kernel, ml["engine"], tmp, card)
+        phase_sharded_topk(torch, np, ml["engine"], card)
         # the held-out set and the sequential artifact's RMSE on it, at sweep 4
         _, heldout = train_test_split(ml["coo"], ml["cfg"].run.test_fraction, ml["cfg"].run.seed)
         seq_rmse = heldout_rmse(np, ml["engine"].predictor(), heldout)
@@ -1355,22 +1740,21 @@ def main() -> int:
         phase_checkpoint(torch, np, gram_kernel, ring["engine"], ring, "ring_checkpoint", card)
     phase_profile(torch, ring["engine"], ring["steady_sweep_s"], "profile_one_ring_sweep")
     fused = phase_ring_layouts(torch, gram_kernel, ring["engine"])
-    del ring["engine"]
-    torch.cuda.empty_cache()
-    t_merge = time.perf_counter()
-    baseline = subset_merge.column_mean_rmse(ml["coo"], ml["cfg"].run.test_fraction, ml["cfg"].run.seed)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke-merge-") as tmp_name:
-        merge = phase_merge(torch, gram_kernel, BPMFEngine, ml, Path(tmp_name))
-        phase_graph_sweeps(torch, merge["engine"], merge, f"posterior_merge P={MERGE_PARTITIONS}", card)
-        phase_checkpoint(torch, np, gram_kernel, merge["engine"], merge, "merge_checkpoint", card)
-        phase_merge_export(torch, np, merge["engine"], heldout, seq_rmse, baseline, Path(tmp_name), card,
-                           subset_merge.MERGE_DEGRADATION_MAX)
-    phase_merge_buckets(torch, gram_kernel, merge["engine"])
+    mp_root = Path(tempfile.mkdtemp(prefix="chip_smoke-mp-"))
+    try:
+        mp = phase_multiproc(torch, np, ml, ring, mp_root, card)
+        phase_multiproc_resume(torch, np, gram_kernel, ring["engine"], ring, mp, card)
+        del ring["engine"]
+        torch.cuda.empty_cache()
+        merge = run_merge_phases(torch, np, gram_kernel, BPMFEngine, subset_merge, ml, heldout, seq_rmse, mp, card)
+        phase_elastic(mp_root / "elastic", card)
+    finally:
+        shutil.rmtree(mp_root, ignore_errors=True)
     del merge["engine"], ml["coo"]
     torch.cuda.empty_cache()
     t_small = time.perf_counter()
     phase_small_task(np, gram_kernel, BPMFConfig, BPMFEngine, load_dataset, subset_merge, train_test_split)
-    print(json.dumps({"phase": "merge_wall_seconds", "ml20m_merge_phases": t_small - t_merge,
+    print(json.dumps({"phase": "merge_wall_seconds", "ml20m_merge_phases": merge["seconds"],
                       "small_task_with_merges": time.perf_counter() - t_small}), flush=True)
 
     phase_yardsticks(ml["gram"], fused)
@@ -1391,6 +1775,7 @@ def main() -> int:
         "reduce_launches": ml["reduce_launches"],
         "merge_launches": merge["launches"],
         "merge_reduce_launches": merge["reduce_launches"],
+        "multiproc_merge_launches_per_rank": mp["merge_launches"],
         "note": f"launches: the 4 replays of the captured sweep and the capture's eager warm-up sweep; "
                 f"ms, plain_ms, bound_ms and library_ms cover the {gram['launches']} launches of one "
                 "ML20M sweep (and their second passes); ms times single calls, device_ms runs of "
@@ -1411,6 +1796,7 @@ def main() -> int:
         "library_ms": fused["bmm_contraction_only_ms"],
         "device_ms": fused["kernel_device_ms"],
         "reduce_launches": ring["reduce_launches"],
+        "multiproc_ring_launches_per_rank": mp["ring_launches"],
         "note": f"launches: the 4 replays of the captured sweep and the capture's eager warm-up sweep; "
                 f"ms, plain_ms, bound_ms and library_ms cover the {fused['launches']} launches of one "
                 f"ML20M sweep of the {RING_SHARDS}-shard ring (and their second passes), from zero sums; "

@@ -22,12 +22,20 @@ work only. On a CUDA device whose shards or chains all sit on one card,
 ``sweep_block`` captures that sweep once as a CUDA graph and replays it
 (:class:`repro_torch.core.sweep_graph.SweepGraph`), the port's
 counterpart of the reference's ``jax.jit`` over ``lax.scan``; a capture
-that fails raises. On the CPU, and for a layout across several cards
+that fails raises. On the CPU, for a layout across several cards
 (written, never run: the copies between cards of ``Ring._send`` are
-not captured, ROADMAP Queue 1 item 9), the same sweep runs eagerly, op by
-op. On a card the eager loop is reached only through the private
-``_eager=True`` argument, which the card tests and ``chip_smoke.py`` use to
-hold the graph to it.
+not captured, ROADMAP Queue 1 item 9), and in a job of several processes
+(a ``gloo`` call is a host call, which a graph cannot hold), the same sweep
+runs eagerly, op by op. On a card the eager loop is reached only through
+the private ``_eager=True`` argument, which the card tests and
+``chip_smoke.py`` use to hold the graph to it.
+
+Multi-process jobs (DESIGN.md §14): the ring backends split the S shards
+over the processes (each builds only its own from the shared rating
+stream), and ``posterior_merge`` gives chain c to process ``c % P``. Every
+process calls every method in the same order: the metrics, the factors,
+the host trees and the export are collectives whose results are the same
+on every process.
 
 Each backend also moves its state, prediction and posterior accumulators
 to and from *host trees*: nested dicts of numpy arrays with the JAX
@@ -57,11 +65,13 @@ from repro_torch.core.subset_merge import MergeAccum
 from repro_torch.core.sweep_graph import SweepGraph
 from repro_torch.core.types import BPMFState, HyperParams, PosteriorAccum, counter
 from repro_torch.data.sparse import (
+    ChunkedRatings,
     RatingsCOO,
     build_bpmf_data,
     build_bpmf_data_presplit,
     train_test_split,
 )
+from repro_torch.launch.hostdevices import process_count, process_index
 from repro_torch.launch.mesh import bpmf_ring
 
 BACKENDS: dict[str, type["Backend"]] = {}
@@ -279,7 +289,7 @@ class Backend(abc.ABC):
         self.graph: SweepGraph | None = None
 
     @abc.abstractmethod
-    def prepare(self, coo: RatingsCOO) -> None:
+    def prepare(self, coo: RatingsCOO | ChunkedRatings) -> None:
         """Build the backend's data layout (split, center, bucket) on its device."""
 
     @abc.abstractmethod
@@ -299,9 +309,9 @@ class Backend(abc.ABC):
         """The devices the carry lives on."""
 
     def captures(self) -> bool:
-        """Whether :meth:`sweep_block` replays a CUDA graph: the carry is on one CUDA device."""
+        """Whether :meth:`sweep_block` replays a CUDA graph: the carry is on one CUDA device, in one process."""
         devices = set(self._devices())
-        return len(devices) == 1 and next(iter(devices)).type == "cuda"
+        return len(devices) == 1 and next(iter(devices)).type == "cuda" and process_count() == 1
 
     def sweep_block(
         self, key: torch.Tensor, state, pred: PredictionState,
@@ -427,13 +437,15 @@ class Backend(abc.ABC):
 class SequentialBackend(Backend):
     """Single-device Algorithm 1 via :mod:`repro_torch.core.gibbs`."""
 
-    def prepare(self, coo: RatingsCOO) -> None:
+    def prepare(self, coo: RatingsCOO | ChunkedRatings) -> None:
         """Split, center and bucket on the host, then upload to the device.
 
-        ``prepare_seconds`` records the host wall time of the two steps
-        (``"build"``, ``"upload"``).
+        A :class:`ChunkedRatings` stream is materialized first. ``prepare_seconds``
+        records the host wall time of the two steps (``"build"``, ``"upload"``).
         """
         t0 = time.perf_counter()
+        if isinstance(coo, ChunkedRatings):
+            coo = coo.materialize()
         host = build_bpmf_data(
             coo,
             pads=self.cfg.backend.bucket_pads,
@@ -505,30 +517,41 @@ class DistributedBackend(Backend):
 
     ``prepare`` builds the ring (:func:`repro_torch.launch.mesh.bpmf_ring`:
     ``BackendConfig.num_shards`` shards over the visible cards, or on the
-    CPU), distributes the data on the host and places each shard's part on
-    its device, with the fused kernel's per-step layouts. The comm mode is
-    the backend's name (``BPMFConfig.core``). State, accumulators and
-    factors are per shard; ``factors`` and ``accum_host`` undo the
-    relabeling.
+    CPU, or split over the processes of a job), distributes the data on the
+    host and places each local shard's part on its device, with the fused
+    kernel's per-step layouts. The comm mode is the backend's name
+    (``BPMFConfig.core``). State, accumulators and factors are per local
+    shard; ``factors`` and ``accum_host`` undo the relabeling.
     """
 
-    def prepare(self, coo: RatingsCOO) -> None:
-        """Partition, bucket per ring step, and place every shard on its device.
+    def prepare(self, coo: RatingsCOO | ChunkedRatings) -> None:
+        """Partition, bucket per ring step, and place every local shard on its device.
 
-        ``prepare_seconds`` records the host wall time of the host build
-        (``"build"``) and of the placement with the fused layouts
-        (``"upload"``).
+        Across processes, or from a :class:`ChunkedRatings` stream, each
+        process streams the ratings and builds only its own shards
+        (:func:`repro_torch.core.distributed.build_distributed_data_per_host`);
+        otherwise one build holds every shard. ``prepare_seconds`` records
+        the host wall time of the host build (``"build"``) and of the
+        placement with the fused layouts (``"upload"``).
+
+        Raises:
+            ValueError: S is not a multiple of the job's process count.
         """
         self.ring = bpmf_ring(self.cfg.backend.num_shards, self.device)
         t0 = time.perf_counter()
-        host, self.plan = dist.build_distributed_data(
-            coo,
+        common = dict(
             num_shards=self.ring.num_shards,
             pads=self.cfg.backend.bucket_pads,
             test_fraction=self.cfg.run.test_fraction,
             seed=self.cfg.run.seed,
             strategy=self.cfg.backend.partition_strategy,
         )
+        if self.ring.spans_processes or isinstance(coo, ChunkedRatings):
+            chunked = coo if isinstance(coo, ChunkedRatings) else coo.chunked()
+            host, self.plan = dist.build_distributed_data_per_host(
+                chunked, local_shards=self.ring.local_shards, **common)
+        else:
+            host, self.plan = dist.build_distributed_data(coo, **common)
         t1 = time.perf_counter()
         fused = self.core_cfg.gram_impl in ("auto", "pallas_fused")
         self.data = dist.place_data(host, self.ring, fused=fused)
@@ -540,7 +563,7 @@ class DistributedBackend(Backend):
 
     @property
     def num_shards(self) -> int:
-        """Ring length S."""
+        """Ring length S (over all processes)."""
         return self.ring.num_shards
 
     def init_state(self, key: torch.Tensor) -> dist.DistState:
@@ -568,26 +591,38 @@ class DistributedBackend(Backend):
         )
 
     def accum_host(self, accum) -> dict:
-        """Host view of the per-shard accumulators, in original item order.
+        """Host view of the per-shard accumulators, in original item order (:func:`accum_host_tree`'s schema).
 
         The shards are joined on the home device, so only the retained
         samples of the window cross to the host, not all ``keep`` slots.
+        Across processes the joined blocks are gathered from every process
+        (a collective), and every process gets the whole tree.
         """
+        count = int(accum[0].count)
 
-        def cat(name: str, dim: int) -> torch.Tensor:
-            return torch.cat([getattr(a, name).to(self.home) for a in accum], dim=dim)
+        def whole(name: str, idx: torch.Tensor | None = None) -> np.ndarray:
+            parts = [getattr(a, name) if idx is None else getattr(a, name)[idx] for a in accum]
+            dim = 0 if idx is None else 1
+            local = torch.cat([p.to(self.home) for p in parts], dim=dim)
+            if self.ring.spans_processes:
+                local = torch.cat(self.ring.all_gather(local), dim=dim)
+            return host_snapshot_leaf(local)
 
-        whole = dataclasses.replace(
-            accum[0], U_sum=cat("U_sum", 0), V_sum=cat("V_sum", 0),
-            U_window=cat("U_window", 1), V_window=cat("V_window", 1),
-        )
-        return accum_host_tree(
-            whole, u_order=self.plan.part_users.perm, v_order=self.plan.part_movies.perm
-        )
+        u_order, v_order = self.plan.part_users.perm, self.plan.part_movies.perm
+        U_sum, V_sum = _EMPTY_SUM, _EMPTY_SUM
+        if count:
+            U_sum, V_sum = whole("U_sum")[u_order], whole("V_sum")[v_order]
+        slots = _window_slots(count, accum[0].keep, int(accum[0].filled))
+        Us, Vs = _EMPTY_STACK, _EMPTY_STACK
+        if slots.size:
+            idx = torch.from_numpy(slots).to(self.home)
+            Us, Vs = whole("U_window", idx)[:, u_order], whole("V_window", idx)[:, v_order]
+        return {"U_sum": U_sum, "V_sum": V_sum, "count": np.asarray(count, np.int32),
+                "U_samples": Us, "V_samples": Vs}
 
     def accum_from_host(self, tree: dict) -> tuple[PosteriorAccum, ...]:
         """Per-shard accumulators from a host tree: the rows go to their shard
-        slots, and block d of the ``[S * cap, K]`` layout to shard d's device."""
+        slots, and block d of the ``[S * cap, K]`` layout to local shard d's device."""
         S, keep, K = self.num_shards, self.cfg.run.keep_factor_samples, self.core_cfg.K
         cap_u, cap_v = self.data.users.cap, self.data.movies.cap
         whole = accum_from_host_tree(
@@ -603,23 +638,34 @@ class DistributedBackend(Backend):
                 U_window=whole.U_window[:, d * cap_u:(d + 1) * cap_u].to(dev),
                 V_window=whole.V_window[:, d * cap_v:(d + 1) * cap_v].to(dev),
             )
-            for d, dev in enumerate(self.ring.devices)
+            for d, dev in zip(self.ring.local_shards, self.ring.devices)
         )
 
     def state_host(self, state: dist.DistState) -> dict:
-        """The shards' ``[cap, K]`` blocks concatenated in shard order (``[S * cap, K]``)."""
-        tree = convert.to_tree(state)
-        tree["U"], tree["V"] = np.concatenate(tree["U"]), np.concatenate(tree["V"])
+        """The shards' ``[cap, K]`` blocks concatenated in shard order (``[S * cap, K]``).
+
+        Across processes U and V are this process's rows only, as
+        :class:`~repro_torch.checkpoint.ShardedHostLeaf` pieces that each
+        process writes itself; the replicated leaves are whole.
+        """
+        tree = convert.to_tree(dataclasses.replace(state, U=(), V=()))
+        for name, cap in (("U", self.data.users.cap), ("V", self.data.movies.cap)):
+            block = torch.cat([x.to(self.home) for x in getattr(state, name)])
+            if self.ring.spans_processes:
+                tree[name] = dist.LocalShardedArray(
+                    block, self.num_shards * cap, self.ring.shard_offset * cap).host_leaf()
+            else:
+                tree[name] = host_snapshot_leaf(block)
         return tree
 
     def state_from_host(self, tree: dict) -> dist.DistState:
-        """Split into S blocks; block d goes to shard d's device, the hyper-parameters to :attr:`home`."""
+        """Split into S blocks; local shard d's block goes to its device, the hyper-parameters to :attr:`home`."""
         host = convert.dist_state_from_tree(tree, self.num_shards)
-        devices = self.ring.devices
+        local = self.ring.local_shards
         return dataclasses.replace(
             host,
-            U=tuple(u.to(dev) for u, dev in zip(host.U, devices)),
-            V=tuple(v.to(dev) for v, dev in zip(host.V, devices)),
+            U=tuple(host.U[d].to(dev) for d, dev in zip(local, self.ring.devices)),
+            V=tuple(host.V[d].to(dev) for d, dev in zip(local, self.ring.devices)),
             hyper_U=host.hyper_U.to(self.home), hyper_V=host.hyper_V.to(self.home),
             sweep=host.sweep.to(self.home),
         )
@@ -672,11 +718,17 @@ class PosteriorMergeBackend(Backend):
     global train/test split, users partitioned into
     ``BackendConfig.num_partitions`` chains by the ring's nnz cost model,
     and one independent chain of the sequential sampler per partition.
-    Chain c sits on ring shard c's device (card ``c % n`` of the n visible
-    cards; with one card every chain shares it). Chains exchange no bytes
-    while they sample; their posteriors meet once, at export
+    In one process chain c sits on ring shard c's device (card ``c % n``
+    of the n visible cards; with one card every chain shares it). In a job
+    of P processes chain c belongs to process ``c % P`` (:attr:`_owner`),
+    which alone builds and sweeps it on its device; the other processes
+    hold ``None`` in its place. Chains exchange no bytes while they sample;
+    their posteriors meet once, at export
     (:func:`repro_torch.core.subset_merge.merge_chain_trees`, by
-    ``BackendConfig.merge_method``).
+    ``BackendConfig.merge_method``). Across processes the per-sweep metric
+    rows and, at save and export, each chain's host trees come from their
+    owners to every process (:meth:`_fetch`, :meth:`_global_rows`), in
+    chain order.
 
     State, prediction and posterior accumulators are tuples of per-chain
     objects (checkpointed per chain, the posterior keyed ``chain_000``,
@@ -686,16 +738,25 @@ class PosteriorMergeBackend(Backend):
 
     exact_parity = False
 
-    def prepare(self, coo: RatingsCOO) -> None:
-        """Partition the users, split once, and build and place each chain's buckets.
+    def prepare(self, coo: RatingsCOO | ChunkedRatings) -> None:
+        """Partition the users, split once, and build and place each local chain's buckets.
 
-        ``prepare_seconds`` records the host wall time of the partition,
-        split and per-chain builds (``"build"``) and of the placement
-        (``"upload"``).
+        A :class:`ChunkedRatings` stream is materialized first (chains
+        split users, not shards). ``prepare_seconds`` records the host wall
+        time of the partition, split and per-chain builds (``"build"``)
+        and of the placement (``"upload"``).
+
+        Raises:
+            ValueError: Fewer chains than processes.
         """
         t0 = time.perf_counter()
+        if isinstance(coo, ChunkedRatings):
+            coo = coo.materialize()
         bk = self.cfg.backend
+        world = process_count()
         P = bk.num_partitions or min(bpmf_ring(0, self.device).num_shards, coo.num_users)
+        if P < world:
+            raise ValueError(f"num_partitions={P} leaves some of the {world} processes without a chain")
         self.user_sets = subset_merge.partition_users(coo, P, strategy=bk.partition_strategy)
         # one global split and centering, the sequential backend's, so the
         # backends compare inference and not data
@@ -705,8 +766,10 @@ class PosteriorMergeBackend(Backend):
         train_subs = subset_merge.split_by_users(train, self.user_sets)
         test_subs = subset_merge.split_by_users(test, self.user_sets)
         self._test_counts = [t.nnz for t in test_subs]
-        host = [
-            build_bpmf_data_presplit(
+        self._owner = [c % world for c in range(P)]
+        self._local_chains = [c for c in range(P) if self._owner[c] == process_index()]
+        host = {
+            c: build_bpmf_data_presplit(
                 subset_merge.localize_users(train_subs[c], self.user_sets[c]),
                 subset_merge.localize_users(test_subs[c], self.user_sets[c]),
                 pads=bk.bucket_pads,
@@ -714,13 +777,17 @@ class PosteriorMergeBackend(Backend):
                 min_rating=self._range[0],
                 max_rating=self._range[1],
             )
-            for c in range(P)
-        ]
+            for c in self._local_chains
+        }
         t1 = time.perf_counter()
-        self.devices = bpmf_ring(P, self.device).devices
-        self.chain_data = [d.to(dev) for d, dev in zip(host, self.devices)]
-        priors = {dev: self.core_cfg.prior(dev) for dev in dict.fromkeys(self.devices)}
-        self.priors = [priors[dev] for dev in self.devices]
+        if world > 1:
+            here = bpmf_ring(0, self.device).home
+            self.devices = [here if c in host else None for c in range(P)]
+        else:
+            self.devices = list(bpmf_ring(P, self.device).devices)
+        self.chain_data = [host[c].to(self.devices[c]) if c in host else None for c in range(P)]
+        priors = {dev: self.core_cfg.prior(dev) for dev in dict.fromkeys(self._local_devices())}
+        self.priors = [priors.get(dev) for dev in self.devices]
         if self.home.type == "cuda":
             torch.cuda.synchronize(self.home)
         self.prepare_seconds = {"build": t1 - t0, "upload": time.perf_counter() - t1}
@@ -738,11 +805,42 @@ class PosteriorMergeBackend(Backend):
 
     @property
     def home(self) -> torch.device:
-        """Chain 0's device: the combined metrics live here."""
-        return self.devices[0]
+        """The first local chain's device: the combined metrics live here."""
+        return self.devices[self._local_chains[0]]
 
-    def init_state(self, key: torch.Tensor) -> tuple[BPMFState, ...]:
-        """Per-chain prior-predictive states.
+    def _local_devices(self) -> list[torch.device]:
+        return [self.devices[c] for c in self._local_chains]
+
+    def _fetch(self, host_tree, c: int):
+        """Chain ``c``'s host tree (numpy leaves) on every process, from its owner.
+
+        A collective across processes (every process calls it for every
+        chain in the same order); the tree itself in one process.
+        """
+        if process_count() == 1:
+            return host_tree
+        box = [host_tree]
+        torch.distributed.broadcast_object_list(box, src=self._owner[c])
+        return box[0]
+
+    def _global_rows(self, local_rows: dict[int, torch.Tensor]) -> list[torch.Tensor]:
+        """Every chain's ``[B, 4]`` metric rows on :attr:`home`, in chain order.
+
+        Across processes each process fills its own chains' rows of a
+        ``[C, B, 4]`` block, the blocks are gathered, and chain c's rows
+        are taken from its owner's block (an exact copy).
+        """
+        if process_count() == 1:
+            return [local_rows[c] for c in range(self.num_partitions)]
+        some = next(iter(local_rows.values()))
+        block = torch.zeros((self.num_partitions,) + tuple(some.shape), dtype=some.dtype, device=self.home)
+        for c, rows in local_rows.items():
+            block[c] = rows.to(self.home)
+        every = dist.all_gather_blocks(block)
+        return [every[self._owner[c]][c] for c in range(self.num_partitions)]
+
+    def init_state(self, key: torch.Tensor) -> tuple[BPMFState | None, ...]:
+        """Per-chain prior-predictive states (``None`` for another process's chain).
 
         U rows are keyed by *original* user id (the sequential init's rows
         of the chain's users), and V is the same in every chain.
@@ -751,7 +849,10 @@ class PosteriorMergeBackend(Backend):
         ku, kv = prng.split(key)
         V = gibbs.init_rows(kv, torch.arange(self._num_movies, device=key.device), K).to(dt)
         states = []
-        for uids, dev in zip(self.user_sets, self.devices):
+        for c, (uids, dev) in enumerate(zip(self.user_sets, self.devices)):
+            if dev is None:
+                states.append(None)
+                continue
             U = gibbs.init_rows(ku, torch.from_numpy(uids).to(key.device), K).to(dt)
             states.append(BPMFState(
                 U=U.to(dev), V=V.to(dev),
@@ -761,7 +862,7 @@ class PosteriorMergeBackend(Backend):
         return tuple(states)
 
     def _combine_metric_rows(self, per_chain: list[torch.Tensor]) -> torch.Tensor:
-        """``C`` per-chain ``[B, 3]`` metric rows to the ``[B, 3]`` global rows, on :attr:`home`.
+        """``C`` per-chain ``[B, 4]`` metric rows to the ``[B, 4]`` global rows, on :attr:`home`.
 
         Each chain's RMSE covers its own (disjoint) test subset, so the
         global RMSE is the quadratic mean weighted by the subsets' sizes,
@@ -780,38 +881,41 @@ class PosteriorMergeBackend(Backend):
         return torch.cat([torch.sqrt(acc / total), sweep, bad], dim=1).to(torch.float32)
 
     def _sweep(self, key, carry):
-        """One sweep of every chain, back to back, then the combined metrics row.
+        """One sweep of every local chain, back to back, then the combined metrics row.
 
         On one card the whole of it, every chain and the combination, is
         one captured graph.
         """
         state, pred, accum = carry
-        outs = [
-            gibbs.sweep_step(
-                subset_merge.chain_key(key, c).to(dev), state[c], pred[c], accum.chains[c],
+        outs = {
+            c: gibbs.sweep_step(
+                subset_merge.chain_key(key, c).to(self.devices[c]), state[c], pred[c], accum.chains[c],
                 self.chain_data[c], self.core_cfg, self.priors[c],
             )
-            for c, dev in enumerate(self.devices)
-        ]
-        row = self._combine_metric_rows([o[3][None] for o in outs])[0]
+            for c in self._local_chains
+        }
+        row = self._combine_metric_rows(self._global_rows({c: o[3][None] for c, o in outs.items()}))[0]
+        C = range(self.num_partitions)
         carry = (
-            tuple(o[0] for o in outs),
-            tuple(o[1] for o in outs),
-            MergeAccum(chains=tuple(o[2] for o in outs)),
+            tuple(outs[c][0] if c in outs else None for c in C),
+            tuple(outs[c][1] if c in outs else None for c in C),
+            MergeAccum(chains=tuple(outs[c][2] if c in outs else None for c in C)),
         )
         return carry, row
 
     def _devices(self) -> list[torch.device]:
-        return list(self.devices)
+        return self._local_devices()
 
     def factors(self, state) -> tuple[np.ndarray, np.ndarray]:
         """(U, V) of the current per-chain samples: U rows from their owning
-        chain, V the mean of the chains' draws."""
+        chain, V the mean of the chains' draws (a collective across processes)."""
         U = np.zeros((self._num_users, self.core_cfg.K), np.float32)
         Vs = []
-        for st, uids in zip(state, self.user_sets):
-            U[uids] = st.U.cpu().numpy().astype(np.float32)
-            Vs.append(st.V.cpu().numpy().astype(np.float32))
+        for c, (st, uids) in enumerate(zip(state, self.user_sets)):
+            mine = None if st is None else (host_snapshot_leaf(st.U), host_snapshot_leaf(st.V))
+            U_c, V_c = self._fetch(mine, c)
+            U[uids] = U_c.astype(np.float32)
+            Vs.append(V_c.astype(np.float32))
         return U, np.mean(np.stack(Vs), axis=0).astype(np.float32)
 
     def _accum_shaped(self, c: int, device) -> PosteriorAccum:
@@ -821,45 +925,54 @@ class PosteriorMergeBackend(Backend):
         )
 
     def init_accum(self) -> MergeAccum:
-        """Zeroed per-chain accumulators, each on its chain's device."""
-        return MergeAccum(chains=tuple(self._accum_shaped(c, dev) for c, dev in enumerate(self.devices)))
+        """Zeroed per-chain accumulators, each on its chain's device (``None`` for another process's chain)."""
+        return MergeAccum(chains=tuple(
+            None if dev is None else self._accum_shaped(c, dev) for c, dev in enumerate(self.devices)))
 
-    def init_pred(self) -> tuple[PredictionState, ...]:
+    def init_pred(self) -> tuple[PredictionState | None, ...]:
         """Per-chain prediction accumulators over each chain's test subset."""
-        return tuple(PredictionState.init(n, dev) for n, dev in zip(self._test_counts, self.devices))
+        return tuple(None if dev is None else PredictionState.init(n, dev)
+                     for n, dev in zip(self._test_counts, self.devices))
 
     def accum_host(self, accum: MergeAccum) -> dict:
-        """``{"chain_000": tree, ...}``, one :func:`accum_host_tree` per chain."""
-        return {_chain_name(c): accum_host_tree(a) for c, a in enumerate(accum.chains)}
+        """``{"chain_000": tree, ...}``, one :func:`accum_host_tree` per chain (a collective across processes)."""
+        return {_chain_name(c): self._fetch(None if a is None else accum_host_tree(a), c)
+                for c, a in enumerate(accum.chains)}
 
     def accum_from_host(self, tree: dict) -> MergeAccum:
         """Per-chain accumulators on their devices from an :meth:`accum_host` tree."""
         return MergeAccum(chains=tuple(
-            accum_from_host_tree(tree[_chain_name(c)], self._accum_shaped(c, "meta")).to(dev)
+            None if dev is None
+            else accum_from_host_tree(tree[_chain_name(c)], self._accum_shaped(c, "meta")).to(dev)
             for c, dev in enumerate(self.devices)
         ))
 
     def state_host(self, state) -> tuple[dict, ...]:
-        """One state tree per chain (chain-local U rows)."""
-        return tuple(convert.to_tree(st) for st in state)
+        """One state tree per chain (chain-local U rows; a collective across processes)."""
+        return tuple(self._fetch(None if st is None else convert.to_tree(st), c) for c, st in enumerate(state))
 
-    def state_from_host(self, tree) -> tuple[BPMFState, ...]:
+    def state_from_host(self, tree) -> tuple[BPMFState | None, ...]:
         """Per-chain states on their devices; ``tree[c]`` is chain c's tree."""
-        return tuple(convert.state_from_tree(tree[c]).to(dev) for c, dev in enumerate(self.devices))
+        return tuple(None if dev is None else convert.state_from_tree(tree[c]).to(dev)
+                     for c, dev in enumerate(self.devices))
 
     def pred_host(self, pred) -> tuple[dict, ...]:
-        """One prediction tree per chain."""
-        return tuple(super(PosteriorMergeBackend, self).pred_host(p) for p in pred)
+        """One prediction tree per chain (a collective across processes)."""
+        parent = super(PosteriorMergeBackend, self)
+        return tuple(self._fetch(None if p is None else parent.pred_host(p), c) for c, p in enumerate(pred))
 
-    def pred_from_host(self, tree) -> tuple[PredictionState, ...]:
+    def pred_from_host(self, tree) -> tuple[PredictionState | None, ...]:
         """Per-chain prediction accumulators on their devices."""
-        return tuple(convert.prediction_from_tree(tree[c]).to(dev) for c, dev in enumerate(self.devices))
+        return tuple(None if dev is None else convert.prediction_from_tree(tree[c]).to(dev)
+                     for c, dev in enumerate(self.devices))
 
     def posterior_export(self, accum: MergeAccum) -> dict:
         """The backend's one communication event: every chain's accumulator
-        to the host, merged (:func:`repro_torch.core.subset_merge.merge_chain_trees`)."""
+        to the host (on every process), merged
+        (:func:`repro_torch.core.subset_merge.merge_chain_trees`)."""
+        trees = self.accum_host(accum)
         return subset_merge.merge_chain_trees(
-            [accum_host_tree(a) for a in accum.chains],
+            [trees[_chain_name(c)] for c in range(self.num_partitions)],
             self.user_sets,
             self._num_users,
             method=self.cfg.backend.merge_method,

@@ -31,6 +31,13 @@ block size and depth.
 Checkpoints and serving artifacts are the JAX package's files, leaf for
 leaf: a checkpoint either package writes restores in the other, and so
 does an artifact.
+
+In a multi-process job (:mod:`repro_torch.launch.hostdevices`) every
+process builds an engine with the same config and calls the same methods
+in the same order: the sweeps, ``save``, ``restore``, ``factors`` and
+``export`` are collectives. Each process holds its own shards or chains;
+the metrics, the factors and the exported artifact are the same on every
+process, and process 0 alone writes the artifact.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ from repro_torch.checkpoint import CheckpointManager, CheckpointSchemaError
 from repro_torch.core import prng
 from repro_torch.core.gibbs import SweepMetrics
 from repro_torch.data.sparse import ChunkedRatings, RatingsCOO
+from repro_torch.launch.hostdevices import process_count, process_index
 from repro_torch.serve.artifact import ArtifactMeta, save_artifact
 from repro_torch.serve.predictor import PosteriorPredictor
 from repro_torch.utils import resolve_device
@@ -124,8 +132,9 @@ class BPMFEngine:
     def prepare(self, data: RatingsCOO | ChunkedRatings) -> "BPMFEngine":
         """Host-side layout (split, center, bucket), uploaded to the device. Idempotent.
 
-        A :class:`ChunkedRatings` stream is materialized first (the per-host
-        build from chunks is ROADMAP Queue 1 item 9).
+        A :class:`ChunkedRatings` stream goes to the backend as it is: the
+        ring backends build only this process's shards from it, the others
+        materialize it.
 
         Raises:
             ValueError: ``data`` differs (by shape/nnz) from the dataset
@@ -139,8 +148,6 @@ class BPMFEngine:
                     f"got different data {fingerprint} — build a new BPMFEngine"
                 )
             return self
-        if isinstance(data, ChunkedRatings):
-            data = data.materialize()
         self.backend.prepare(data)
         self._data_fingerprint = fingerprint
         return self
@@ -371,7 +378,9 @@ class BPMFEngine:
         :meth:`repro_torch.serve.PosteriorPredictor.load` or either
         package's serving CLIs to load without re-running MCMC. Blocks in
         flight drain first, and checkpoint writes still pending on the async
-        writer commit first.
+        writer commit first. In a multi-process job the payload is gathered
+        by every process, process 0 writes it, and a barrier keeps the others
+        from reading a half-written artifact.
 
         Args:
             directory: Artifact directory (replaced if it already holds one).
@@ -383,7 +392,12 @@ class BPMFEngine:
         if self._ckpt is not None:
             self._ckpt.wait()
         meta, arrays = self._artifact_payload()
-        return save_artifact(directory, meta, arrays)
+        if process_count() == 1:
+            return save_artifact(directory, meta, arrays)
+        if process_index() == 0:
+            save_artifact(directory, meta, arrays)
+        torch.distributed.barrier()
+        return directory
 
     def save(self, step: int | None = None) -> int:
         """Checkpoint the state, the prediction accumulator, the posterior and the metric history.

@@ -3,6 +3,7 @@ from repro_torch.checkpoint.checkpoint import (
     CheckpointCorruptError,
     CheckpointError,
     CheckpointSchemaError,
+    ShardedHostLeaf,
     host_snapshot_leaf,
     latest_step,
     restore_checkpoint,
@@ -15,6 +16,7 @@ __all__ = [
     "CheckpointError",
     "CheckpointManager",
     "CheckpointSchemaError",
+    "ShardedHostLeaf",
     "host_snapshot_leaf",
     "latest_step",
     "restore_checkpoint",

@@ -7,8 +7,11 @@ returns), so the sweep that follows may update the tensors in place. With
 ``wait()`` joins outstanding writes; retention prunes beyond ``keep``;
 every live manager is drained at interpreter exit (an ``atexit`` hook over
 a weak set), so a process that ends right after an async ``save()`` still
-commits it. Commits are atomic either way (tmp-dir rename, then ``LATEST``
-replaced), so a crash mid-write never exposes a torn checkpoint.
+commits it. In a multi-process job ``save`` writes on the caller's thread:
+the commit protocol's barriers must come in program order with the job's
+other collectives, which a background writer would deadlock against.
+Commits are atomic either way (tmp-dir rename, then ``LATEST`` replaced),
+so a crash mid-write never exposes a torn checkpoint.
 
 Reads (``latest``, ``all_steps``, ``restore``) first join the pending
 writes of every live manager of the same directory in the process, not
@@ -28,12 +31,14 @@ from typing import Any, Iterable, Mapping, Optional
 import numpy as np
 
 from repro_torch.checkpoint.checkpoint import (
+    ShardedHostLeaf,
     _step_dir,
     host_snapshot_leaf,
     latest_step,
     restore_checkpoint,
     save_checkpoint,
 )
+from repro_torch.launch.hostdevices import process_count, process_index
 from repro_torch.utils import logger
 
 # live managers with a worker pool, drained by the atexit hook below; weak
@@ -84,17 +89,19 @@ class CheckpointManager:
 
         Args:
             step: Step number of the checkpoint.
-            leaves: Leaf name -> tensor or numpy array, in manifest order.
+            leaves: Leaf name -> tensor, numpy array or
+                :class:`~repro_torch.checkpoint.ShardedHostLeaf`, in
+                manifest order.
         """
         host = {name: host_snapshot_leaf(leaf) for name, leaf in leaves.items()}
-        if self._pool is None:
+        if self._pool is None or process_count() > 1:
             save_checkpoint(self.directory, step, host)
             self._retain()
         else:
             self._pending = [f for f in self._pending if not f.done()]
             self._pending.append(self._pool.submit(self._write, step, host))
 
-    def _write(self, step: int, host: dict[str, np.ndarray]) -> None:
+    def _write(self, step: int, host: dict[str, np.ndarray | ShardedHostLeaf]) -> None:
         try:
             save_checkpoint(self.directory, step, host)
             self._retain()
@@ -131,6 +138,8 @@ class CheckpointManager:
         return sorted(steps)
 
     def _retain(self) -> None:
+        if process_index() != 0:
+            return  # one pruner; the other processes may still read these directories
         steps = self._list_steps()
         for s in steps[: -self.keep] if self.keep > 0 else []:
             shutil.rmtree(_step_dir(self.directory, s), ignore_errors=True)

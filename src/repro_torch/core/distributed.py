@@ -3,15 +3,18 @@
 The paper distributes U and V across MPI ranks, balances work with a
 cost-model-driven reorder of R, and overlaps communication with computation
 using buffered MPI_Isend/Irecv. The JAX package runs that as one
-``shard_map`` program over S devices; this port keeps its single-controller
-model:
+``shard_map`` program over S devices, which may belong to several
+processes. This port runs the same per-shard program:
 
-  * ranks            -> an ordered list of S shard devices (:class:`Ring`);
-                        shard d sits on card ``d % n`` of the n visible
-                        cards, or on the CPU. Each shard's factor block,
-                        buckets and ``(G, g)`` sums live on its device, and
-                        every step of the per-shard program runs for shard
-                        0, 1, ..., S-1 in turn
+  * ranks            -> an ordered list of S shard devices (:class:`Ring`).
+                        In one process shard d sits on card ``d % n`` of
+                        the n visible cards, or on the CPU. Across P
+                        ``torch.distributed`` processes, process p owns
+                        shards ``local_shard_range(S, p, P)``, all on its
+                        own device. Each shard's factor block, buckets and
+                        ``(G, g)`` sums live on its device, and every step
+                        of the per-shard program runs for each local shard
+                        in turn
   * R reordering     -> ``balance.partition_items`` relabeling; shard s owns
                         the relabeled id range [s*cap, (s+1)*cap)
   * Isend/Irecv +    -> ``comm_mode="ring"``: :meth:`Ring.rotate` hands each
@@ -25,24 +28,35 @@ model:
 
 Shards that share a device hand their buffers over without a copy, so S
 shards on one card run the whole ring schedule on that card. Between two
-cards a rotation is a ``tensor.to(next_device, non_blocking=True)`` on a
-side stream of each card, and the compute stream waits on an event before
-it reads the buffer.
+cards of one process a rotation is a ``tensor.to(next_device,
+non_blocking=True)`` on a side stream of each card, and the compute stream
+waits on an event before it reads the buffer. Between two processes each
+rank sends its last local shard's block to the next rank and receives the
+previous rank's in one ``torch.distributed.batch_isend_irecv``; under
+``gloo`` a CUDA block is staged through pinned host memory (copied to the
+host once per half-sweep, received into the host, copied to the card on a
+side stream behind an event). The hyper-parameter statistics, the test
+predictions' factor rows and the allgather mode's blocks cross processes by
+``all_gather``, and every rank then computes the same replicated values.
 
-Correctness contract (DESIGN.md §1): for identical (key, data), every
-comm_mode and every shard count draws the same posterior samples as the
-sequential sampler, up to float reduction order. Per-item noise is keyed by
-original item id (``posterior.item_noise``) and the hyper-parameter
-statistics are summed over shards in shard order (:func:`_psum_ordered`).
+Correctness contract (DESIGN.md §1, §14): for identical (key, data), every
+comm_mode, every shard count and every split of the S shards over
+processes draws the same posterior samples as the sequential sampler, up to
+float reduction order, and the process split changes no bit. Per-item noise
+is keyed by original item id (``posterior.item_noise``) and the
+hyper-parameter statistics are summed over shards in global shard order
+(:func:`_psum_ordered`).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpoint import ShardedHostLeaf, _shard_ranges
 from repro_torch.core import posterior, prng
 from repro_torch.core.balance import CostModel, Partition, partition_items
 from repro_torch.core.gibbs import SweepMetrics, init_rows, metrics_row, sweep_keys
@@ -60,8 +74,16 @@ from repro_torch.core.types import (
     PosteriorAccum,
     counter,
 )
-from repro_torch.data.sparse import RatingsCOO, csr_from_coo, stable_mean, train_test_split
+from repro_torch.data.sparse import (
+    ChunkedRatings,
+    RatingsCOO,
+    StableMeanAccumulator,
+    csr_from_coo,
+    stable_mean,
+    train_test_split,
+)
 from repro_torch.kernels import ops
+from repro_torch.launch.hostdevices import process_count, process_index
 
 
 # --------------------------------------------------------------------------
@@ -73,27 +95,31 @@ from repro_torch.kernels import ops
 class RingSide:
     """Neighbor lists for updating one side, laid out for the ring schedule.
 
-    ``steps[t][d]`` holds shard d's buckets for ring step t: the
-    contributions to each of its items' Gram terms from opposite-side items
-    owned by shard ``(d - t) mod S``, which is the block in shard d's buffer
-    at step t. Neighbor indices are local to that source shard. Bucket
-    shapes at a step agree across shards, as in the JAX package, whose
-    ``[S * B, ...]`` arrays are these blocks stacked.
+    ``steps[t][i]`` holds the buckets of local shard i (global shard
+    ``d = shard_offset + i``) for ring step t: the contributions to each of
+    its items' Gram terms from opposite-side items owned by shard
+    ``(d - t) mod S``, which is the block in shard d's buffer at step t.
+    Neighbor indices are local to that source shard. Bucket shapes at a
+    step agree across all S shards, as in the JAX package, whose
+    ``[S * B, ...]`` arrays are these blocks stacked. A process of a
+    multi-process ring holds its own shards only (``shard_offset`` is its
+    first); a single process holds all S.
 
     ``Bucket.item_ids`` are local rows of the shard's ``[cap, K]`` block
-    (-1 = padding); ``orig_ids[d]`` gives each row's original item id
+    (-1 = padding); ``orig_ids[i]`` gives each row's original item id
     (-1 = padding slot), which keys the per-item noise.
 
-    ``fused[t][d]`` is the step's flattened layout for the fused kernel
+    ``fused[t][i]`` is the step's flattened layout for the fused kernel
     (``None`` where the step has no buckets), built once on the shard's
     device by :func:`place_data`; empty when the run does not use it.
     """
 
     steps: tuple[tuple[tuple[Bucket, ...], ...], ...]
-    orig_ids: tuple[torch.Tensor, ...]  # per shard [cap] int32
+    orig_ids: tuple[torch.Tensor, ...]  # per local shard [cap] int32
     cap: int = 0
     num_items: int = 0
     fused: tuple[tuple[ops.FusedStep | None, ...], ...] = ()
+    shard_offset: int = 0
 
     @property
     def num_steps(self) -> int:
@@ -101,6 +127,7 @@ class RingSide:
 
     @property
     def num_shards(self) -> int:
+        """Shards held here (all S in one process, this process's own in a multi-process ring)."""
         return len(self.orig_ids)
 
 
@@ -147,12 +174,56 @@ class DistState:
 
 @dataclasses.dataclass(frozen=True)
 class DistPlan:
-    """Host-side record of how the problem was partitioned."""
+    """Host-side record of how the problem was partitioned.
+
+    ``local_shards`` / ``local_nnz`` / ``total_nnz`` are set by the per-host
+    builder (:func:`build_distributed_data_per_host`): which ring shards
+    this process materialized and how many training ratings it kept against
+    the global count (``local_nnz < total_nnz`` on every process of a
+    multi-process run).
+    """
 
     part_users: Partition
     part_movies: Partition
     num_shards: int
     strategy: str
+    local_shards: tuple[int, ...] | None = None
+    local_nnz: int = 0
+    total_nnz: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalShardedArray:
+    """One process's row block of a ring-sharded global array: the only part it holds.
+
+    ``shape``/``dtype`` describe the global ``[global_rows, ...]`` array;
+    ``block`` holds its rows ``[row_offset, row_offset + block.shape[0])``.
+    :func:`fetch_global` gathers the blocks of every process (a
+    collective); :meth:`host_leaf` is this process's share of a checkpoint
+    leaf, written as a per-shard file.
+    """
+
+    block: torch.Tensor
+    global_rows: int
+    row_offset: int
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return (self.global_rows,) + tuple(self.block.shape[1:])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.block.dtype
+
+    def host_leaf(self) -> ShardedHostLeaf:
+        """This process's rows as a :class:`~repro_torch.checkpoint.ShardedHostLeaf` (a host copy)."""
+        index = (slice(self.row_offset, self.row_offset + self.block.shape[0]),) + (slice(None),) * (
+            self.block.dim() - 1)
+        host = self.block.detach().to("cpu", copy=True).numpy()
+        return ShardedHostLeaf(
+            global_shape=self.shape, dtype=str(host.dtype),
+            shards=((_shard_ranges(self.shape, index), host),),
+        )
 
 
 # --------------------------------------------------------------------------
@@ -160,11 +231,34 @@ class DistPlan:
 # --------------------------------------------------------------------------
 
 
-class InFlight(NamedTuple):
-    """A shard's buffer and the event of its arrival (``None``: already in place)."""
+class _Pending:
+    """Sends and receives between processes in flight. :meth:`wait` waits for them once
+    (waiting twice on a finished ``gloo`` work blocks)."""
 
-    tensor: torch.Tensor
+    def __init__(self, works):
+        self._works = list(works)
+
+    def wait(self) -> None:
+        for w in self._works:
+            w.wait()
+        self._works.clear()
+
+
+class InFlight(NamedTuple):
+    """A shard's buffer on its way: the tensor, and what :meth:`Ring.take` must wait for.
+
+    ``event``: the buffer's arrival on its device (``None``: in place).
+    ``host``: a pinned host copy of the buffer, made for sending it to
+    another process under ``gloo``. ``pending``: the send and receive
+    between processes that bring it. A buffer received through the host
+    has no ``tensor`` yet: ``take`` copies ``host`` to ``device``.
+    """
+
+    tensor: torch.Tensor | None
     event: torch.cuda.Event | None = None
+    host: torch.Tensor | None = None
+    pending: _Pending | None = None
+    device: torch.device | None = None
 
 
 def _indexed(device: torch.device) -> torch.device:
@@ -173,58 +267,181 @@ def _indexed(device: torch.device) -> torch.device:
     return device
 
 
-class Ring:
-    """The S shard devices of a ring, and the rotation of buffers around it."""
+def _stages_through_host(device: torch.device) -> bool:
+    """Whether a tensor on ``device`` crosses processes through host memory (``gloo`` cannot move CUDA tensors)."""
+    return device.type == "cuda" and torch.distributed.get_backend() == "gloo"
 
-    def __init__(self, devices: Sequence[torch.device | str]):
+
+def _host_copies(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """Pinned host copies of ``xs``, complete on return: each copy follows the work queued before it on its stream."""
+    hosts = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in xs]
+    for h, x in zip(hosts, xs):
+        h.copy_(x, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(xs[0].device))
+    done.synchronize()
+    return hosts
+
+
+def all_gather_blocks(x: torch.Tensor) -> list[torch.Tensor]:
+    """Every process's ``x`` (one shape on all), in rank order, on ``x``'s device. A collective.
+
+    Under ``gloo`` a CUDA tensor goes through pinned host memory, and the
+    gathered blocks come back to the card with non-blocking copies on the
+    current stream.
+    """
+    if process_count() == 1:
+        return [x]
+    staged = _stages_through_host(x.device)
+    send = _host_copies([x])[0] if staged else x.contiguous()
+    outs = [torch.empty(send.shape, dtype=send.dtype, device=send.device, pin_memory=staged)
+            for _ in range(process_count())]
+    torch.distributed.all_gather(outs, send)
+    return [o.to(x.device, non_blocking=True) for o in outs] if staged else outs
+
+
+class Ring:
+    """The S shard devices of a ring, and the rotation of buffers around it.
+
+    Args:
+        devices: The devices of the shards this process holds, in shard
+            order (all S in a single-process ring).
+        num_shards: The ring's S; ``None`` means ``len(devices)``. Larger
+            means the ring spans ``S / len(devices)`` processes, one per
+            rank of the ``torch.distributed`` job, and this process holds
+            shards ``[shard_offset, shard_offset + len(devices))``.
+        shard_offset: This process's first shard.
+
+    ``host_bytes`` and ``host_seconds`` count what crossed processes
+    through host memory under ``gloo``: the bytes copied to and from the
+    card, and the host's wall time in those copies and in the waits for
+    ``gloo`` (reset them to measure a window).
+    """
+
+    def __init__(self, devices: Sequence[torch.device | str], num_shards: int | None = None,
+                 shard_offset: int = 0):
         if not devices:
             raise ValueError("a ring needs at least one shard device")
         self.devices = tuple(_indexed(torch.device(d)) for d in devices)
+        L = len(self.devices)
+        self.num_shards = L if num_shards is None else int(num_shards)
+        self.shard_offset = int(shard_offset)
+        if self.num_shards % L or self.shard_offset % L or self.shard_offset + L > self.num_shards:
+            raise ValueError(f"{L} local shards from shard {shard_offset} do not tile a ring of {self.num_shards}")
+        self.num_processes = self.num_shards // L
+        self.rank = self.shard_offset // L
+        if self.num_processes > 1 and (process_count(), process_index()) != (self.num_processes, self.rank):
+            raise RuntimeError(
+                f"a ring over {self.num_processes} processes needs rank {self.rank} of a "
+                f"{self.num_processes}-process job (init_multiprocess); this is rank "
+                f"{process_index()} of {process_count()}"
+            )
         self._side_streams: dict[torch.device, torch.cuda.Stream] = {}
+        self._tag = 0
+        self.host_bytes = 0
+        self.host_seconds = 0.0
 
     @property
-    def num_shards(self) -> int:
-        return len(self.devices)
+    def spans_processes(self) -> bool:
+        """Whether the ring's shards belong to more than one process."""
+        return self.num_processes > 1
+
+    @property
+    def local_shards(self) -> range:
+        """The global ids of the shards this process holds."""
+        return range(self.shard_offset, self.shard_offset + len(self.devices))
 
     @property
     def home(self) -> torch.device:
-        """Shard 0's device: hyper-parameters, test predictions and metrics live here."""
+        """The first local shard's device: hyper-parameters, test predictions and metrics live here."""
         return self.devices[0]
 
     def distinct_devices(self) -> list[torch.device]:
-        """The ring's devices, each once, in shard order."""
+        """The local shards' devices, each once, in shard order."""
         return list(dict.fromkeys(self.devices))
 
     def shards_per_device(self) -> dict[str, int]:
-        """How many shards share each device."""
+        """How many local shards share each device."""
         out: dict[str, int] = {}
         for dev in self.devices:
             out[str(dev)] = out.get(str(dev), 0) + 1
         return out
 
+    def _staged(self) -> bool:
+        return self.spans_processes and _stages_through_host(self.home)
+
+    def stage(self, bufs: Sequence[InFlight]) -> list[InFlight]:
+        """The buffers with pinned host copies attached, when they will cross processes through the host.
+
+        One device-to-host copy of every local block at the start of a
+        half-sweep (a single wait for the card), so that no later send has
+        to wait for the Gram kernels queued after it. Otherwise the
+        buffers as they are.
+        """
+        if not self._staged():
+            return list(bufs)
+        t0 = time.perf_counter()
+        hosts = _host_copies([self.take(b) for b in bufs])
+        self.host_bytes += sum(h.nbytes for h in hosts)
+        self.host_seconds += time.perf_counter() - t0
+        return [b._replace(host=h) for b, h in zip(bufs, hosts)]
+
     def rotate(self, bufs: Sequence[InFlight]) -> list[InFlight]:
         """One ring hop (``lax.ppermute`` with perm ``i -> i + 1``): shard d receives shard d-1's buffer.
 
         A buffer whose next shard shares its device is handed over as it
-        is. Otherwise the copy is issued on side streams of both cards and
-        returns at once; :meth:`take` makes the reader wait for it.
+        is. Between cards of this process the copy is issued on side
+        streams of both cards and returns at once. Across processes this
+        rank's last local shard's buffer goes to the next rank, and the
+        previous rank's arrives for the first local shard, in one
+        ``batch_isend_irecv`` that returns at once. :meth:`take` makes the
+        reader wait for either.
         """
-        S = len(bufs)
+        L = len(bufs)
         out = []
-        for d in range(S):
-            buf = bufs[(d - 1) % S]
-            dst = self.devices[d]
-            out.append(buf if buf.tensor.device == dst else self._send(buf, dst))
+        for i in range(L):
+            if i == 0 and self.spans_processes:
+                out.append(self._exchange(bufs[L - 1]))
+                continue
+            buf = bufs[(i - 1) % L]
+            dst = self.devices[i]
+            here = buf.device if buf.tensor is None else buf.tensor.device
+            out.append(buf if here == dst else self._send(buf, dst))
         return out
 
     def take(self, buf: InFlight) -> torch.Tensor:
         """The buffer's tensor, once the current stream of its device has waited for its arrival."""
+        if buf.pending is not None:
+            t0 = time.perf_counter()
+            buf.pending.wait()
+            self.host_seconds += time.perf_counter() - t0
+        if buf.tensor is None:  # received into the host: to the card on a side stream, behind an event
+            t0 = time.perf_counter()
+            side = self._side_stream(buf.device)
+            with torch.cuda.stream(side):
+                tensor = buf.host.to(buf.device, non_blocking=True)
+            arrived = torch.cuda.Event()
+            arrived.record(side)
+            buf = InFlight(tensor, arrived)
+            self.host_bytes += tensor.nbytes
+            self.host_seconds += time.perf_counter() - t0
         if buf.event is None:
             return buf.tensor
         stream = torch.cuda.current_stream(buf.tensor.device)
         stream.wait_event(buf.event)
         buf.tensor.record_stream(stream)
         return buf.tensor
+
+    def all_gather(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """Every process's ``x``, in rank order (so in shard order), on ``x``'s device: :func:`all_gather_blocks`, counted."""
+        if not self.spans_processes:
+            return [x]
+        t0 = time.perf_counter()
+        out = all_gather_blocks(x)
+        if _stages_through_host(x.device):
+            self.host_bytes += x.nbytes * (1 + self.num_processes)
+        self.host_seconds += time.perf_counter() - t0
+        return out
 
     def _side_stream(self, device: torch.device) -> torch.cuda.Stream:
         if device not in self._side_streams:
@@ -247,9 +464,34 @@ class Ring:
         arrived.record(s_dst)
         return InFlight(out, arrived)
 
+    def _exchange(self, buf: InFlight) -> InFlight:
+        """Send ``buf`` to the next rank and post the receive of the previous rank's buffer."""
+        t0 = time.perf_counter()
+        nxt = (self.rank + 1) % self.num_processes
+        prv = (self.rank - 1) % self.num_processes
+        self._tag += 1  # every rank rotates in the same order: the tags pair the messages
+        if self._staged():
+            if buf.pending is not None:  # a block received earlier, forwarded from the host as it came
+                buf.pending.wait()
+            if buf.host is None:
+                buf = self.stage([buf])[0]
+            send = buf.host
+            recv = torch.empty(send.shape, dtype=send.dtype, pin_memory=True)
+        else:
+            send = self.take(buf)
+            recv = torch.empty_like(send)
+        works = torch.distributed.batch_isend_irecv([
+            torch.distributed.P2POp(torch.distributed.isend, send, nxt, tag=self._tag),
+            torch.distributed.P2POp(torch.distributed.irecv, recv, prv, tag=self._tag),
+        ])
+        self.host_seconds += time.perf_counter() - t0
+        if self._staged():
+            return InFlight(None, host=recv, pending=_Pending(works), device=self.devices[0])
+        return InFlight(recv, pending=_Pending(works))
+
 
 def _per_shard(x, ring: Ring) -> list:
-    """``x`` (a tensor or a container with ``.to``) on every shard's device, one copy per device."""
+    """``x`` (a tensor or a container with ``.to``) on every local shard's device, one copy per device."""
     copies = {dev: x.to(dev) for dev in ring.distinct_devices()}
     return [copies[dev] for dev in ring.devices]
 
@@ -292,6 +534,9 @@ def _ring_side_buckets(
     num_shards: int,
     pads: Sequence[int],
     bucket_multiple: int = 8,
+    *,
+    shard_counts: np.ndarray | None = None,
+    local_shards: Sequence[int] | None = None,
 ) -> RingSide:
     """Build the per-step bucketed neighbor lists for one side (CPU tensors).
 
@@ -301,12 +546,25 @@ def _ring_side_buckets(
     and pad class). Slots fill in ascending original id and neighbors in
     CSR order: the layout of ``repro.core.distributed._ring_side_buckets``,
     element for element.
+
+    Per-host mode: with ``local_shards`` (a contiguous ascending subset) the
+    bucket *shapes* still come from all S shards, through ``shard_counts``
+    (the ``[num_items, S]`` neighbor counts per source shard that every
+    process derives from the same partition), but only the local shards'
+    buckets are built. The CSR then needs only the rows of locally owned
+    items, and each local shard's buckets equal that shard's in a full
+    build.
     """
     S = num_shards
     cap = part_self.cap
     cap_opp = part_opp.cap
     num_items = len(indptr) - 1
-    shard_counts = _neighbor_shard_counts(indptr, indices, part_opp, S)
+    local = tuple(range(S)) if local_shards is None else tuple(int(d) for d in local_shards)
+    if not local or list(local) != list(range(local[0], local[-1] + 1)):
+        raise ValueError(f"local_shards must be contiguous ascending, got {local}")
+    L = len(local)
+    if shard_counts is None:
+        shard_counts = _neighbor_shard_counts(indptr, indices, part_opp, S)
 
     pads_sorted = sorted(pads)
     d_of = (part_self.perm // cap).astype(np.int64)  # owning shard per item
@@ -318,16 +576,16 @@ def _ring_side_buckets(
         cnt_t = shard_counts[item_ids_all, src_t].astype(np.int64)
         present = (cnt_t > 0) | (t == 0)  # t == 0 rows always present
         pc_t = _pad_class_of(cnt_t, pads_sorted)
-        per_shard: list[list[Bucket]] = [[] for _ in range(S)]
+        per_shard: list[list[Bucket]] = [[] for _ in range(L)]
         for pc in sorted(int(p) for p in np.unique(pc_t[present])):
             in_class = present & (pc_t == pc)
             per_dev = np.bincount(d_of[in_class], minlength=S)
             B = -(-int(per_dev.max()) // bucket_multiple) * bucket_multiple
-            item_ids = np.full((S, B), -1, dtype=np.int32)
-            nbr = np.zeros((S, B, pc), dtype=np.int32)
-            val = np.zeros((S, B, pc), dtype=np.float32)
-            nnz = np.zeros((S, B), dtype=np.int32)
-            for d in range(S):
+            item_ids = np.full((L, B), -1, dtype=np.int32)
+            nbr = np.zeros((L, B, pc), dtype=np.int32)
+            val = np.zeros((L, B, pc), dtype=np.float32)
+            nnz = np.zeros((L, B), dtype=np.int32)
+            for li, d in enumerate(local):
                 # ascending original id, as in the JAX package
                 for slot, old_id in enumerate(np.nonzero(in_class & (d_of == d))[0]):
                     r = int(part_self.perm[old_id]) % cap
@@ -335,25 +593,26 @@ def _ring_side_buckets(
                     nbr_new = part_opp.perm[indices[lo:hi]]
                     sel = (nbr_new // cap_opp) == ((d - t) % S)
                     nb = (nbr_new % cap_opp)[sel]
-                    item_ids[d, slot] = r
-                    nnz[d, slot] = len(nb)
-                    nbr[d, slot, : len(nb)] = nb
-                    val[d, slot, : len(nb)] = values[lo:hi][sel]
-            for d in range(S):
-                per_shard[d].append(Bucket(
-                    item_ids=torch.from_numpy(item_ids[d]),
-                    nbr=torch.from_numpy(nbr[d]),
-                    val=torch.from_numpy(val[d]),
-                    nnz=torch.from_numpy(nnz[d]),
+                    item_ids[li, slot] = r
+                    nnz[li, slot] = len(nb)
+                    nbr[li, slot, : len(nb)] = nb
+                    val[li, slot, : len(nb)] = values[lo:hi][sel]
+            for li in range(L):
+                per_shard[li].append(Bucket(
+                    item_ids=torch.from_numpy(item_ids[li]),
+                    nbr=torch.from_numpy(nbr[li]),
+                    val=torch.from_numpy(val[li]),
+                    nnz=torch.from_numpy(nnz[li]),
                 ))
         steps.append(tuple(tuple(b) for b in per_shard))
 
     orig = np.asarray(part_self.inv_perm, dtype=np.int32)  # [S*cap], -1 pads
     return RingSide(
         steps=tuple(steps),
-        orig_ids=tuple(torch.from_numpy(orig[d * cap : (d + 1) * cap].copy()) for d in range(S)),
+        orig_ids=tuple(torch.from_numpy(orig[d * cap : (d + 1) * cap].copy()) for d in local),
         cap=cap,
         num_items=num_items,
+        shard_offset=local[0],
     )
 
 
@@ -412,6 +671,145 @@ def build_distributed_data(
     return data, DistPlan(part_u, part_m, num_shards, strategy)
 
 
+def local_shard_range(num_shards: int, process_index: int, num_processes: int) -> range:
+    """The contiguous ring shards owned by one process: ``[p*S/P, (p+1)*S/P)``.
+
+    Raises:
+        ValueError: ``num_shards`` is not a multiple of ``num_processes``.
+    """
+    if num_shards % num_processes:
+        raise ValueError(f"num_shards={num_shards} must be divisible by num_processes={num_processes}")
+    per = num_shards // num_processes
+    return range(process_index * per, (process_index + 1) * per)
+
+
+def build_distributed_data_per_host(
+    ratings: ChunkedRatings,
+    num_shards: int,
+    local_shards: Sequence[int],
+    pads: Sequence[int] = (8, 32, 128, 512, 2048),
+    test_fraction: float = 0.1,
+    seed: int = 0,
+    strategy: str = "lpt",
+    cost_model: CostModel | None = None,
+    min_rating: float | None = None,
+    max_rating: float | None = None,
+) -> tuple[DistBPMFData, DistPlan]:
+    """Per-host distribution pipeline: the global plan, the local shards only.
+
+    Every process streams the same rating chunks twice and computes the
+    same global state: the train/test split (the seeded draws consumed in
+    chunk order, which equals the one-shot draw), per-item rating counts,
+    the cost-balanced partitions, the centering mean (the
+    chunking-invariant accumulator) and the bucket shape plan. It keeps
+    only the training ratings that touch one of its ``local_shards`` and
+    builds only those shards' buckets; no process holds the whole training
+    array (the guard below raises if the filter keeps everything). The
+    held-out triples stay whole on every process.
+
+    With ``local_shards`` covering every shard this equals
+    :func:`build_distributed_data` on the materialized stream, bit for bit.
+
+    Raises:
+        ValueError: A chunk larger than ``ratings.chunk_rows``.
+        RuntimeError: A process owning part of the shards kept every
+            training rating.
+    """
+    S = num_shards
+    local = tuple(int(d) for d in local_shards)
+    U, M = ratings.num_users, ratings.num_movies
+
+    # -- pass 1: split, per-item train counts, mean, test triples
+    rng = np.random.default_rng(seed)
+    u_nnz = np.zeros(U, dtype=np.int64)
+    m_nnz = np.zeros(M, dtype=np.int64)
+    mean_acc = StableMeanAccumulator()
+    test_rows, test_cols, test_vals = [], [], []
+    vmin, vmax = np.inf, -np.inf
+    total_train = 0
+    for chunk in ratings.chunks():
+        if chunk.nnz > ratings.chunk_rows:
+            raise ValueError(f"chunk of {chunk.nnz} ratings exceeds chunk_rows={ratings.chunk_rows}")
+        t = rng.random(chunk.nnz) < test_fraction
+        tr = ~t
+        u_nnz += np.bincount(chunk.rows[tr], minlength=U)
+        m_nnz += np.bincount(chunk.cols[tr], minlength=M)
+        mean_acc.add(chunk.vals[tr])
+        test_rows.append(chunk.rows[t])
+        test_cols.append(chunk.cols[t])
+        test_vals.append(chunk.vals[t])
+        if chunk.nnz:
+            vmin = min(vmin, float(chunk.vals.min()))
+            vmax = max(vmax, float(chunk.vals.max()))
+        total_train += int(tr.sum())
+    mean = mean_acc.mean()
+
+    cm = cost_model or CostModel()
+    part_u = partition_items(u_nnz, S, cm, strategy)
+    part_m = partition_items(m_nnz, S, cm, strategy)
+    shard_of_u = (part_u.perm // part_u.cap).astype(np.int64)
+    shard_of_m = (part_m.perm // part_m.cap).astype(np.int64)
+    local_u = np.isin(shard_of_u, local)
+    local_m = np.isin(shard_of_m, local)
+
+    # -- pass 2: neighbor counts per source shard (global), local ratings kept
+    rng2 = np.random.default_rng(seed)
+    cnt_u = np.zeros(U * S, dtype=np.int64)
+    cnt_m = np.zeros(M * S, dtype=np.int64)
+    keep_r, keep_c, keep_v = [], [], []
+    for chunk in ratings.chunks():
+        tr = ~(rng2.random(chunk.nnz) < test_fraction)
+        r, c, v = chunk.rows[tr], chunk.cols[tr], chunk.vals[tr]
+        cnt_u += np.bincount(r.astype(np.int64) * S + shard_of_m[c], minlength=U * S)
+        cnt_m += np.bincount(c.astype(np.int64) * S + shard_of_u[r], minlength=M * S)
+        keep = local_u[r] | local_m[c]
+        keep_r.append(r[keep])
+        keep_c.append(c[keep])
+        keep_v.append(v[keep])
+    cnt_u = cnt_u.reshape(U, S).astype(np.int32)
+    cnt_m = cnt_m.reshape(M, S).astype(np.int32)
+
+    r = np.concatenate(keep_r) if keep_r else np.zeros(0, np.int32)
+    c = np.concatenate(keep_c) if keep_c else np.zeros(0, np.int32)
+    v = np.concatenate(keep_v) if keep_v else np.zeros(0, np.float32)
+    local_nnz = int(r.shape[0])
+    if len(local) < S and total_train and local_nnz >= total_train:
+        raise RuntimeError(
+            f"per-host retention kept all {total_train} training ratings on a process owning "
+            f"only shards {local} of {S}: the locality filter is not reducing the resident ratings"
+        )
+    cv = v - np.float32(mean)
+    own_u, own_m = local_u[r], local_m[c]
+    u_indptr, u_idx, u_val = csr_from_coo(r[own_u], c[own_u], cv[own_u], U)
+    m_indptr, m_idx, m_val = csr_from_coo(c[own_m], r[own_m], cv[own_m], M)
+    users = _ring_side_buckets(u_indptr, u_idx, u_val, part_u, part_m, S, pads,
+                               shard_counts=cnt_u, local_shards=local)
+    movies = _ring_side_buckets(m_indptr, m_idx, m_val, part_m, part_u, S, pads,
+                                shard_counts=cnt_m, local_shards=local)
+
+    trows = np.concatenate(test_rows) if test_rows else np.zeros(0, np.int32)
+    tcols = np.concatenate(test_cols) if test_cols else np.zeros(0, np.int32)
+    tvals = np.concatenate(test_vals) if test_vals else np.zeros(0, np.float32)
+    lo = (vmin if np.isfinite(vmin) else -np.inf) if min_rating is None else min_rating
+    hi = (vmax if np.isfinite(vmax) else np.inf) if max_rating is None else max_rating
+    data = DistBPMFData(
+        users=users,
+        movies=movies,
+        test=DistTestSet(
+            rows=torch.from_numpy(part_u.perm[trows].astype(np.int32)),
+            cols=torch.from_numpy(part_m.perm[tcols].astype(np.int32)),
+            vals=torch.from_numpy(np.asarray(tvals, np.float32)),
+        ),
+        mean_rating=torch.tensor(mean, dtype=torch.float32),
+        num_shards=S,
+        min_rating=lo,
+        max_rating=hi,
+    )
+    plan = DistPlan(part_u, part_m, S, strategy, local_shards=local, local_nnz=local_nnz,
+                    total_nnz=total_train)
+    return data, plan
+
+
 def _place_side(side: RingSide, ring: Ring, fused: bool) -> RingSide:
     devs = ring.devices
     steps = tuple(
@@ -432,7 +830,7 @@ def _place_side(side: RingSide, ring: Ring, fused: bool) -> RingSide:
 
 
 def place_data(data: DistBPMFData, ring: Ring, fused: bool = True) -> DistBPMFData:
-    """Shard d's buckets and ids on ``ring.devices[d]``, the test set on the ring's home.
+    """Local shard i's buckets and ids on ``ring.devices[i]``, the test set on the ring's home.
 
     With ``fused`` every (side, step, shard) also gets its flattened layout
     and item -> chunk order (:func:`repro_torch.kernels.ops.fused_step`),
@@ -440,6 +838,9 @@ def place_data(data: DistBPMFData, ring: Ring, fused: bool = True) -> DistBPMFDa
     """
     if data.num_shards != ring.num_shards:
         raise ValueError(f"data has {data.num_shards} shards, the ring {ring.num_shards}")
+    held = range(data.users.shard_offset, data.users.shard_offset + data.users.num_shards)
+    if held != ring.local_shards:
+        raise ValueError(f"data holds shards {held}, the ring's process {ring.local_shards}")
     home = ring.home
     return dataclasses.replace(
         data,
@@ -455,12 +856,12 @@ def place_data(data: DistBPMFData, ring: Ring, fused: bool = True) -> DistBPMFDa
 # --------------------------------------------------------------------------
 
 
-def _accumulate(G, g, X_src, side: RingSide, t: int, d: int, cfg: BPMFConfig) -> None:
-    """Add ring step t's contributions to shard d's ``(G, g)`` (``ops.bpmf_gram_step``)."""
+def _accumulate(G, g, X_src, side: RingSide, t: int, i: int, cfg: BPMFConfig) -> None:
+    """Add ring step t's contributions to local shard i's ``(G, g)`` (``ops.bpmf_gram_step``)."""
     ops.bpmf_gram_step(
-        G, g, X_src, side.steps[t][d],
+        G, g, X_src, side.steps[t][i],
         alpha=cfg.alpha, compute_dtype=cfg.compute_dtype, gram_impl=cfg.gram_impl,
-        layout=side.fused[t][d] if side.fused else None,
+        layout=side.fused[t][i] if side.fused else None,
     )
 
 
@@ -474,8 +875,8 @@ def _zero_terms(side: RingSide, K: int, ring: Ring) -> tuple[list, list]:
 def _sample_shards(key, side: RingSide, G, g, hyper: HyperParams, ring: Ring) -> tuple:
     keys, hypers = _per_shard(key, ring), _per_shard(hyper, ring)
     return tuple(
-        posterior.sample_from_terms(keys[d], side.orig_ids[d], G[d], g[d], hypers[d])
-        for d in range(ring.num_shards)
+        posterior.sample_from_terms(keys[i], side.orig_ids[i], G[i], g[i], hypers[i])
+        for i in range(len(ring.devices))
     )
 
 
@@ -483,15 +884,14 @@ def _half_sweep_ring(key, X_opp, side: RingSide, hyper, cfg: BPMFConfig, ring: R
     """Paper §IV-C: rotate opposite shards around the ring, overlap compute.
 
     The rotation for step t+1 is issued before step t's Gram accumulation,
-    so a transfer between cards proceeds while the kernel runs.
+    so a transfer between cards or processes proceeds while the kernel runs.
     """
-    S = ring.num_shards
     G, g = _zero_terms(side, X_opp[0].shape[-1], ring)
-    bufs = [InFlight(x) for x in X_opp]
-    for t in range(S):
-        nxt = ring.rotate(bufs) if t + 1 < S else None  # in flight during the Gram
-        for d in range(S):
-            _accumulate(G[d], g[d], ring.take(bufs[d]), side, t, d, cfg)
+    bufs = ring.stage([InFlight(x) for x in X_opp])
+    for t in range(ring.num_shards):
+        nxt = ring.rotate(bufs) if t + 1 < ring.num_shards else None  # in flight during the Gram
+        for i in range(len(bufs)):
+            _accumulate(G[i], g[i], ring.take(bufs[i]), side, t, i, cfg)
         if nxt is not None:
             bufs = nxt
     return _sample_shards(key, side, G, g, hyper, ring)
@@ -504,22 +904,23 @@ def _half_sweep_ring_async(key, X_opp, side: RingSide, hyper, cfg: BPMFConfig, r
     rotations for steps 1..d-1, step t issues the one for step t+d, and the
     last d steps drain the queue. The buffer consumed at step t holds shard
     ``(d_axis - t) mod S`` at any depth, so the draw is bit-identical to
-    ``comm_mode="ring"``; d opposite blocks are live at once.
+    ``comm_mode="ring"``; d opposite blocks are live at once (across
+    processes: d sends and receives in flight).
     """
     if cfg.pipeline_depth < 1:
         raise ValueError(f"pipeline_depth must be >= 1, got {cfg.pipeline_depth}")
     S = ring.num_shards
     depth = min(cfg.pipeline_depth, S)  # more than S - 1 rotations cannot exist
     G, g = _zero_terms(side, X_opp[0].shape[-1], ring)
-    queue = [[InFlight(x) for x in X_opp]]  # queue[i] holds the buffers of step t + i
+    queue = [ring.stage([InFlight(x) for x in X_opp])]  # queue[i] holds the buffers of step t + i
     for _ in range(depth - 1):
         queue.append(ring.rotate(queue[-1]))
     for t in range(S):
         if t + depth < S:  # issue step t+d while accumulating step t
             queue.append(ring.rotate(queue[-1]))
         bufs = queue.pop(0)
-        for d in range(S):
-            _accumulate(G[d], g[d], ring.take(bufs[d]), side, t, d, cfg)
+        for i in range(len(bufs)):
+            _accumulate(G[i], g[i], ring.take(bufs[i]), side, t, i, cfg)
     return _sample_shards(key, side, G, g, hyper, ring)
 
 
@@ -527,17 +928,21 @@ def _half_sweep_allgather(key, X_opp, side: RingSide, hyper, cfg: BPMFConfig, ri
     """Synchronous baseline: each device concatenates every opposite block, then updates.
 
     Reuses the ring's neighbor lists: at step t shard d reads block
-    ``(d - t) mod S`` of the gathered matrix.
+    ``(d - t) mod S`` of the gathered matrix. Across processes the blocks
+    come by one ``all_gather``.
     """
     S = ring.num_shards
     cap_opp = X_opp[0].shape[0]
-    full = {dev: torch.cat([x.to(dev) for x in X_opp]) for dev in ring.distinct_devices()}
+    if ring.spans_processes:
+        full = {ring.home: torch.cat(ring.all_gather(torch.cat(X_opp)))}
+    else:
+        full = {dev: torch.cat([x.to(dev) for x in X_opp]) for dev in ring.distinct_devices()}
     G, g = _zero_terms(side, X_opp[0].shape[-1], ring)
     for t in range(S):
-        for d in range(S):
+        for i, d in enumerate(ring.local_shards):
             o = (d - t) % S
-            block = full[ring.devices[d]][o * cap_opp : (o + 1) * cap_opp]
-            _accumulate(G[d], g[d], block, side, t, d, cfg)
+            block = full[ring.devices[i]][o * cap_opp : (o + 1) * cap_opp]
+            _accumulate(G[i], g[i], block, side, t, i, cfg)
     return _sample_shards(key, side, G, g, hyper, ring)
 
 
@@ -548,15 +953,35 @@ _HALVES = {
 }
 
 
-def _psum_ordered(xs: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
-    """Sum over shards in shard order 0..S-1, on ``device``: the order does not depend on the ring."""
-    return torch.stack([x.to(device) for x in xs]).sum(dim=0)
+def _psum_ordered(xs: Sequence[torch.Tensor], ring: Ring) -> torch.Tensor:
+    """Sum over all S shards in shard order 0..S-1, on the ring's home: the order does not depend on the ring.
+
+    Across processes the local terms are gathered first (an exact copy), so
+    every process sums the same ``[S, ...]`` stack as one process would.
+    """
+    stack = torch.stack([x.to(ring.home) for x in xs])
+    if ring.spans_processes:
+        stack = torch.cat(ring.all_gather(stack))
+    return stack.sum(dim=0)
 
 
 def _sample_hyper_dist(key, X: Sequence[torch.Tensor], orig_ids, prior, ring: Ring) -> HyperParams:
-    """NW conditional from the shards' sufficient statistics (padding slots weigh 0)."""
+    """NW conditional from the shards' sufficient statistics (padding slots weigh 0).
+
+    Across processes the three statistics of every local shard travel in
+    one gather, and each is unpacked to its own ``[S, ...]`` stack before
+    the sum, so the sums are :func:`_psum_ordered`'s.
+    """
     stats = [hyper_sufficient_stats(x, ids >= 0) for x, ids in zip(X, orig_ids)]
-    n, sx, sxx = (_psum_ordered([s[i] for s in stats], ring.home) for i in range(3))
+    if not ring.spans_processes:
+        n, sx, sxx = (_psum_ordered([s[i] for s in stats], ring) for i in range(3))
+        return sample_hyper_from_stats(key, n, sx, sxx, prior)
+    K = X[0].shape[-1]
+    packed = torch.stack([torch.cat([n.reshape(1), sx, sxx.reshape(-1)]).to(ring.home) for n, sx, sxx in stats])
+    every = torch.cat(ring.all_gather(packed))  # [S, 1 + K + K*K]
+    n = every[:, 0].contiguous().sum(dim=0)
+    sx = every[:, 1 : 1 + K].contiguous().sum(dim=0)
+    sxx = every[:, 1 + K :].reshape(-1, K, K).contiguous().sum(dim=0)
     return sample_hyper_from_stats(key, n, sx, sxx, prior)
 
 
@@ -565,11 +990,15 @@ def _predict_dist(U, V, test: DistTestSet, mean_rating, min_rating, max_rating, 
 
     Each test row lives on one shard; the JAX package sums masked local
     gathers over the ring, which adds exact zeros, so gathering from the
-    shards' concatenation on the home device gives the same bits.
+    shards' concatenation on the home device gives the same bits. Across
+    processes every process gathers all blocks (``all_gather``) and
+    computes the same replicated predictions.
     """
     home = ring.home
     U_all = torch.cat([u.to(home) for u in U])
     V_all = torch.cat([v.to(home) for v in V])
+    if ring.spans_processes:
+        U_all, V_all = torch.cat(ring.all_gather(U_all)), torch.cat(ring.all_gather(V_all))
     preds = (U_all[test.rows.long()] * V_all[test.cols.long()]).sum(dim=-1) + mean_rating
     return preds.clamp(min_rating, max_rating)
 
@@ -579,7 +1008,9 @@ def _sweep_step(key, state: DistState, pred: PredictionState, data: DistBPMFData
                 prior: NormalWishartPrior | None = None) -> tuple[DistState, PredictionState, torch.Tensor]:
     """One full Gibbs sweep over the ring (Algorithm 1, distributed); the metrics row stays on the device.
 
-    ``prior`` is ``cfg.prior(ring.home)``, built here when not given.
+    ``prior`` is ``cfg.prior(ring.home)``, built here when not given. In a
+    ring over processes every process gets the same hyper-parameters,
+    predictions and metrics row.
     """
     if cfg.comm_mode not in _HALVES:
         raise ValueError(f"unknown comm_mode {cfg.comm_mode!r}; one of {sorted(_HALVES)}")
@@ -599,6 +1030,14 @@ def _sweep_step(key, state: DistState, pred: PredictionState, data: DistBPMFData
     pred, r_sample, r_avg = accumulate_predictions(pred, preds, data.test.vals, sweep > cfg.burn_in)
     row = metrics_row(r_sample, r_avg, sweep, hyper_ok(hyper_U, hyper_V))
     return DistState(U=U, V=V, hyper_U=hyper_U, hyper_V=hyper_V, sweep=sweep), pred, row
+
+
+def dist_gibbs_sweep(key, state: DistState, pred: PredictionState, data: DistBPMFData,
+                     cfg: BPMFConfig, ring: Ring,
+                     prior: NormalWishartPrior | None = None) -> tuple[DistState, PredictionState, SweepMetrics]:
+    """One distributed sweep and its metrics on the host (the JAX package's per-sweep entry point)."""
+    state, pred, row = _sweep_step(key, state, pred, data, cfg, ring, prior)
+    return state, pred, SweepMetrics(*map(float, row[:3].cpu().numpy()))
 
 
 def dist_sweep_step(key, state: DistState, pred: PredictionState, accum: tuple[PosteriorAccum, ...],
@@ -630,8 +1069,9 @@ def dist_gibbs_sweep_block(
 ) -> tuple[DistState, PredictionState, tuple[PosteriorAccum, ...], torch.Tensor]:
     """``block_size`` distributed sweeps, issued one op at a time, with no read back to the host.
 
-    Shard d's posterior accumulator (``accum[d]``) sums its own rows on its
-    device, updated in place. Returns ``(state, pred, accum, metrics)``
+    Local shard i's posterior accumulator (``accum[i]``) sums its own rows
+    on its device, updated in place. (Across processes the metrics rows
+    come from collectives, which the host waits for.) Returns ``(state, pred, accum, metrics)``
     with ``metrics`` a ``[block_size, 4]`` float32 tensor of per-sweep rows
     (:func:`repro_torch.core.gibbs.metrics_row`) on the ring's home device.
     """
@@ -681,19 +1121,42 @@ def run_distributed(
     k_init, k_run = prng.split(key)
     state = init_dist_state(k_init, data, cfg, ring)
     pred = PredictionState.init(data.test.rows.shape[0], ring.home)
-    accum = init_dist_accum(data, cfg, ring, keep=0)
     history: list[SweepMetrics] = []
     for _ in range(num_sweeps):
-        state, pred, accum, rows = dist_gibbs_sweep_block(k_run, state, pred, accum, data, cfg, ring, 1)
-        metrics = SweepMetrics(*map(float, rows[0, :3].cpu().numpy()))
+        state, pred, metrics = dist_gibbs_sweep(k_run, state, pred, data, cfg, ring)
         history.append(metrics)
         if callback is not None:
             callback(state, metrics)
     return state, pred, history
 
 
+def fetch_global(x) -> np.ndarray:
+    """Host copy of a tensor, or of the global array a :class:`LocalShardedArray` is one process's block of.
+
+    A :class:`LocalShardedArray` whose block is not the whole array is
+    gathered from every process (blocks of one size, in rank order): a
+    collective, which every process of the job must call together.
+    """
+    if isinstance(x, LocalShardedArray):
+        if x.block.shape[0] == x.global_rows:
+            x = x.block
+        else:
+            x = torch.cat(all_gather_blocks(x.block))
+    return x.detach().cpu().numpy()
+
+
 def gather_factors(state: DistState, plan: DistPlan) -> tuple[np.ndarray, np.ndarray]:
-    """Undo the relabeling: (U, V) in original item order, on the host."""
-    U = torch.cat([u.cpu() for u in state.U]).numpy()
-    V = torch.cat([v.cpu() for v in state.V]).numpy()
+    """Undo the relabeling: (U, V) in original item order, on the host.
+
+    In a ring over processes every process gets the whole factors (a
+    collective, :func:`fetch_global`).
+    """
+    S = plan.num_shards
+
+    def whole(blocks, cap: int) -> np.ndarray:
+        local = torch.cat([b.to(blocks[0].device) for b in blocks])
+        return fetch_global(LocalShardedArray(local, S * cap, process_index() * local.shape[0]))
+
+    U = whole(state.U, plan.part_users.cap)
+    V = whole(state.V, plan.part_movies.cap)
     return U[plan.part_users.perm], V[plan.part_movies.perm]

@@ -57,8 +57,9 @@ class ChunkedRatings:
 
     ``chunk_fn`` returns a *fresh* iterator of :class:`RatingsCOO` chunks on
     every call, in a deterministic order, with at most ``chunk_rows``
-    ratings each. The engine materializes it (the per-host build from
-    chunks is ROADMAP Queue 1 item 9).
+    ratings each. The ring backends build each process's shards from it
+    (``core.distributed.build_distributed_data_per_host``); the other
+    backends materialize it.
     """
 
     chunk_fn: Callable[[], Iterator[RatingsCOO]]

@@ -25,10 +25,20 @@ places its chains the same way. On one card every backend replays its sweep
 as a captured CUDA graph; ``--pipeline-blocks`` and ``--donate-blocks`` set
 the block queue's depth and whether blocks hand back the graph's buffers or
 copies (the same samples either way).
+
+Multi-process: ``--coordinator host:port --num-processes N --process-id i``
+(or the ``REPRO_*`` environment that ``python -m
+repro_torch.launch.multiproc`` sets) joins this process to a job of N
+(:mod:`repro_torch.launch.hostdevices`); the ring backends then split their
+``--num-shards`` over the N processes, and ``posterior_merge`` its chains.
+Only process 0 prints and writes the artifact. ``--inject-failure SWEEP``
+kills the job's last process after that sweep (not under ``--resume``), so
+a launcher's elastic restart can be tried end to end.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -88,14 +98,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "background writer thread")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to run (default cuda; cpu only when asked)")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0's store: joins a multi-process job "
+                        "(env fallback: REPRO_COORDINATOR)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="process count of the multi-process job (env fallback: REPRO_NUM_PROCESSES)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank in [0, num-processes) (env fallback: REPRO_PROCESS_ID)")
+    p.add_argument("--inject-failure", type=int, default=None, metavar="SWEEP",
+                   help="testing: kill the job's last process after SWEEP completes "
+                        "(skipped under --resume so an elastic restart does not re-fire it)")
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
 
-    from repro_torch.bpmf import BPMFConfig, BPMFEngine, load_dataset
+    from repro_torch.launch.hostdevices import init_multiprocess, process_count, process_index, shutdown
 
+    init_multiprocess(args.coordinator, args.num_processes, args.process_id, device=args.device)
+
+    from repro_torch.bpmf import BPMFConfig, BPMFEngine, load_dataset
+    from repro_torch.runtime.elastic import FailureInjector, NodeFailure, StepTimer
+
+    say = print if process_index() == 0 else (lambda *a, **kw: None)
     dataset_kw = {}
     if args.dataset == "synthetic":
         dataset_kw = dict(num_users=args.users, num_movies=args.movies, nnz=args.nnz)
@@ -126,31 +152,52 @@ def main(argv: list[str] | None = None) -> int:
     resumed_at = 0
     if args.resume:
         resumed_at = engine.restore()
-        print(f"resumed from checkpoint at sweep {resumed_at}")
+        say(f"resumed from checkpoint at sweep {resumed_at}")
+    # the straggler watchdog times every sweep; the injector stands in for a
+    # preempted process, so a launcher's restart policy can be tried end to end
+    timer = StepTimer()
+    injector = None
+    if args.inject_failure is not None and not args.resume and process_index() == process_count() - 1:
+        injector = FailureInjector({args.inject_failure: 1})
     shards = ""
     if hasattr(engine.backend, "num_shards"):
         shards = f" shards={engine.backend.num_shards}"
     elif hasattr(engine.backend, "num_partitions"):
         shards = f" partitions={engine.backend.num_partitions}"
-    print(
-        f"backend={args.backend}{shards} device={engine.device} dataset={args.dataset} "
-        f"R: {coo.num_users} x {coo.num_movies}, {coo.nnz} ratings; "
+    say(
+        f"backend={args.backend}{shards} device={engine.device} processes={process_count()} "
+        f"dataset={args.dataset} R: {coo.num_users} x {coo.num_movies}, {coo.nnz} ratings; "
         f"K={cfg.model.K} sweeps={cfg.run.num_sweeps}"
     )
     t0 = time.time()
+    t_prev = t0
     for m in engine.sample():
-        print(f"  sweep {int(m.sweep):4d}  rmse(sample)={m.rmse_sample:.4f}  "
-              f"rmse(avg)={m.rmse_avg:.4f}")
+        t_now = time.time()
+        timer.record(int(m.sweep), t_now - t_prev)
+        t_prev = t_now
+        say(f"  sweep {int(m.sweep):4d}  rmse(sample)={m.rmse_sample:.4f}  "
+            f"rmse(avg)={m.rmse_avg:.4f}")
+        if injector is not None:
+            try:
+                injector.check(int(m.sweep))
+            except NodeFailure as e:
+                # die as a preempted process does: no shutdown handshake, no
+                # exit handlers; only committed checkpoints survive, which is
+                # what the launcher's restart resumes from
+                print(f"injected failure at sweep {int(m.sweep)} on process {process_index()}: {e}",
+                      flush=True)
+                os._exit(1)
     dt = time.time() - t0
     swept = engine.num_sweeps_done - resumed_at  # only what this process ran
     updates = (coo.num_users + coo.num_movies) * swept
-    print(
+    say(
         f"final rmse(avg)={engine.rmse:.4f} after {engine.num_sweeps_done} sweeps "
         f"({swept} this run) in {dt:.2f}s ({updates / max(dt, 1e-9):,.0f} item updates/s)"
     )
     if args.export_artifact:
-        path = engine.export(args.export_artifact)
-        print(f"exported serving artifact to {path}")
+        path = engine.export(args.export_artifact)  # a collective in a multi-process job
+        say(f"exported serving artifact to {path}")
+    shutdown()
     return 0
 
 

@@ -1,16 +1,19 @@
 """The BPMF ring of shard devices (the port of ``repro.launch.mesh.bpmf_ring``).
 
 The JAX package builds a 1-D ``Mesh`` over the first ``num_shards``
-devices. This port runs the ring from one process, so a ring is the
-ordered list of S shard devices: shard d sits on card ``d % n`` of the n
-visible cards, so S may exceed n and shards then share a card. On the CPU
-every shard sits on the CPU.
+global devices. Here a ring is the ordered list of S shard devices. In one
+process shard d sits on card ``d % n`` of the n visible cards, so S may
+exceed n and shards then share a card; on the CPU every shard sits on the
+CPU. In a job of P processes (:mod:`repro_torch.launch.hostdevices`) the
+ring spans them: process p holds shards ``local_shard_range(S, p, P)``,
+all on its own device.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.distributed import Ring
+from repro_torch.core.distributed import Ring, local_shard_range
+from repro_torch.launch.hostdevices import process_count, process_index
 
 
 def bpmf_ring(num_shards: int = 0, device: str | torch.device | None = None) -> Ring:
@@ -18,18 +21,24 @@ def bpmf_ring(num_shards: int = 0, device: str | torch.device | None = None) -> 
 
     Args:
         num_shards: Ring length S; 0 means one shard per visible card (one
-            shard on the CPU).
+            shard on the CPU), or one per process in a multi-process job.
         device: ``None`` or ``"cuda"`` spreads the shards over every visible
-            card; ``"cuda:i"`` keeps them all on card i; ``"cpu"`` puts them
-            on the CPU.
+            card (in a multi-process job: puts this process's shards on its
+            current card); ``"cuda:i"`` keeps them all on card i; ``"cpu"``
+            puts them on the CPU.
 
     Raises:
-        ValueError: ``num_shards`` is negative.
+        ValueError: ``num_shards`` is negative, or not a multiple of the
+            job's process count.
         RuntimeError: Shards are asked for on CUDA and no card is visible.
     """
     if num_shards < 0:
         raise ValueError(f"num_shards must be >= 0, got {num_shards}")
     dev = torch.device("cuda" if device is None else device)
+    if process_count() > 1:
+        S = num_shards or process_count()
+        local = local_shard_range(S, process_index(), process_count())
+        return Ring([dev] * len(local), num_shards=S, shard_offset=local.start)
     if dev.type == "cpu":
         return Ring([dev] * (num_shards or 1))
     if dev.type != "cuda":

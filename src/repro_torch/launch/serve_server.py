@@ -19,8 +19,9 @@ micro-batches. ``--port 0`` binds an ephemeral port (printed on stderr).
 The flags are those of ``python -m repro.launch.serve_server``, with
 ``--device cuda|cpu`` (default ``cuda``) in place of ``--devices``; with no
 GPU and no ``--device cpu`` the CLI exits with the error of
-``repro_torch.launch.bpmf``. ``--topk-mode sharded`` (the item-sharded
-scan across cards) is refused until ROADMAP Queue 1 item 9.
+``repro_torch.launch.bpmf``. ``--topk-mode sharded`` scans the catalog
+split into one item shard per visible card and merges the shards'
+candidates (the same answers as ``replicated``).
 """
 from __future__ import annotations
 
@@ -49,8 +50,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "wait while traffic is sparse)")
     p.add_argument("--topk-mode", choices=("auto", "replicated", "sharded"),
                    default="auto",
-                   help="catalog top-k execution: the scan on this device (auto, "
-                        "replicated); sharded needs several cards and is refused")
+                   help="catalog top-k execution: the scan on this device (replicated), "
+                        "one item shard per visible card (sharded), or sharded for "
+                        "several cards and 1,024+ items (auto)")
     p.add_argument("--no-watch", action="store_true",
                    help="disable the artifact hot-swap watcher")
     p.add_argument("--poll-interval", type=float, default=1.0,

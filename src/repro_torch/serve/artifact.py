@@ -178,7 +178,9 @@ def save_artifact(directory: str, meta: ArtifactMeta, arrays: dict[str, np.ndarr
         if got != want:
             raise ValueError(f"artifact array {name}: shape {got} != {want} from meta")
     os.makedirs(directory, exist_ok=True)
-    save_checkpoint(directory, _ARRAYS_STEP, {k: np.asarray(arrays[k]) for k in _MANIFEST_ORDER})
+    # one writer (the caller): a multi-process export writes from process 0 alone
+    save_checkpoint(directory, _ARRAYS_STEP, {k: np.asarray(arrays[k]) for k in _MANIFEST_ORDER},
+                    collective=False)
     tmp = os.path.join(directory, f".{_ARTIFACT_JSON}-{secrets.token_hex(4)}")
     with open(tmp, "w") as f:
         json.dump(meta.to_json(), f, indent=1)

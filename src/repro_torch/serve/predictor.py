@@ -10,8 +10,10 @@ rating queries without touching the sampler:
 
 The factors are small next to query traffic, so they sit whole on one
 device, and ``top_k`` scans the whole catalog there (the JAX package's
-replicated mode; its item-sharded mode needs several cards, ROADMAP Queue
-1 item 9).
+replicated mode), or, item-sharded, scans ``V`` split along the item axis
+over a list of serve devices and merges the shards' candidates on the host
+(:mod:`repro_torch.serve.sharded_topk`; :func:`serve_devices` puts shard i
+on card ``i % n``, so on one card every shard shares it).
 
 Every score is summed over K in one fixed order, ``k = 0, 1, ..., K - 1``,
 by one elementwise product and one add per ``k``, and the predictive std
@@ -30,13 +32,30 @@ import numpy as np
 import torch
 
 from repro_torch.serve.artifact import ArtifactMeta, load_artifact
+from repro_torch.serve.sharded_topk import build_local_topk, merge_topk, shard_items
 from repro_torch.utils import resolve_device
 
 _TOPK_MODES = ("auto", "replicated", "sharded")
-_SHARDED_ITEM = (
-    "item-sharded top-k spans several cards and is not ported yet "
-    "(ROADMAP Queue 1 item 9); one card answers from the replicated scan"
-)
+_AUTO_SHARD_MIN_ITEMS = 1024  # topk_mode="auto": shard catalogs at least this big
+
+
+def serve_devices(num_shards: int = 0, device: torch.device | str | None = None) -> list[torch.device]:
+    """The devices of an item-sharded top-k (the port of ``serve_mesh``): shard i on card ``i % n``.
+
+    Args:
+        num_shards: Item shards S; 0 means one per visible card (one on the
+            CPU).
+        device: ``None`` or ``"cuda"`` spreads the shards over the visible
+            cards, ``"cuda:i"`` keeps them on card i, ``"cpu"`` on the CPU.
+
+    Raises:
+        RuntimeError: CUDA asked for and no card is visible.
+    """
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return [dev] * (num_shards or 1)
+    cards = [dev] if dev.index is not None else [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [cards[i % len(cards)] for i in range(num_shards or len(cards))]
 
 
 def _dot_k(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -82,6 +101,7 @@ class PosteriorPredictor:
         arrays: dict[str, np.ndarray],
         device: torch.device | str | None = None,
         topk_mode: str = "auto",
+        item_devices: list[torch.device] | None = None,
     ):
         """Place the posterior summary on ``device``.
 
@@ -91,22 +111,27 @@ class PosteriorPredictor:
                 arrays in the shapes ``meta`` promises.
             device: ``None`` or ``"cuda"`` serves from the GPU; ``"cpu"``
                 from the CPU.
-            topk_mode: ``"auto"`` or ``"replicated"``: the catalog scan on
-                this device. ``"sharded"`` (the JAX package's item-sharded
-                scan across devices) raises.
+            topk_mode: Default ``top_k`` execution: ``"replicated"`` (the
+                catalog scan on ``device``), ``"sharded"`` (the item-sharded
+                scan over ``item_devices`` and the host merge) or ``"auto"``
+                (sharded when there is more than one item shard and the
+                catalog has at least 1,024 items). ``top_k(...,
+                sharded=...)`` overrides it per call.
+            item_devices: One device per item shard
+                (:func:`serve_devices`); ``None`` means one per visible card
+                (one on the CPU).
 
         Raises:
             ValueError: An unknown ``topk_mode``.
-            NotImplementedError: ``topk_mode="sharded"``.
             RuntimeError: No CUDA device and no CPU request.
         """
         if topk_mode not in _TOPK_MODES:
             raise ValueError(f"topk_mode must be auto|replicated|sharded, got {topk_mode!r}")
-        if topk_mode == "sharded":
-            raise NotImplementedError(_SHARDED_ITEM)
         self.meta = meta
         self.topk_mode = topk_mode
         self.device = resolve_device(device)
+        self.item_devices = list(item_devices) if item_devices is not None else serve_devices(0, self.device)
+        self._local_topk = None
         if self.device.type == "cuda":
             # float32 products throughout, in a serving process too
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -121,20 +146,21 @@ class PosteriorPredictor:
 
     @classmethod
     def load(
-        cls, directory: str, device: torch.device | str | None = None, topk_mode: str = "auto"
+        cls, directory: str, device: torch.device | str | None = None, topk_mode: str = "auto",
+        item_devices: list[torch.device] | None = None,
     ) -> "PosteriorPredictor":
         """Load a predictor from an artifact directory (either package's export).
 
         Args:
             directory: Artifact directory.
             device: ``None`` or ``"cuda"`` for the GPU, ``"cpu"`` for the CPU.
-            topk_mode: See :meth:`__init__`.
+            topk_mode, item_devices: See :meth:`__init__`.
 
         Raises:
             ArtifactError: Typed load failure (:mod:`repro_torch.serve.artifact`).
         """
         meta, arrays = load_artifact(directory)
-        return cls(meta, arrays, device, topk_mode=topk_mode)
+        return cls(meta, arrays, device, topk_mode=topk_mode, item_devices=item_devices)
 
     @classmethod
     def from_engine(cls, engine) -> "PosteriorPredictor":
@@ -191,15 +217,31 @@ class PosteriorPredictor:
         per_sample = (_dot_k(self._Us[:, r], self._Vs[:, c]) + self._mean).clamp(lo, hi)
         return preds.cpu().numpy(), _std0(per_sample).cpu().numpy()
 
+    def _use_sharded_topk(self, sharded: bool | None) -> bool:
+        if sharded is not None:
+            return bool(sharded)
+        if self.topk_mode == "auto":
+            return len(self.item_devices) > 1 and self.meta.num_movies >= _AUTO_SHARD_MIN_ITEMS
+        return self.topk_mode == "sharded"
+
+    def _top_k_sharded(self, users: torch.Tensor, k: int) -> tuple[np.ndarray, np.ndarray]:
+        """Each item shard's top-k on its device, merged on the host (:mod:`repro_torch.serve.sharded_topk`)."""
+        if self._local_topk is None:
+            shards = shard_items(self._V, self.item_devices)
+            self._local_topk = build_local_topk(shards, self.meta.num_movies, _catalog_scores)
+        lo, hi = self.meta.min_rating, self.meta.max_rating
+        cand_ids, cand_vals = self._local_topk(self._U[users], self._mean, k, lo, hi)
+        return merge_topk(cand_ids, cand_vals, k)
+
     def top_k(self, user, k: int, sharded: bool | None = None):
         """Highest-scoring movies for one user (or a batch of users).
 
         Args:
             user: A user id, or a ``[B]`` array of user ids.
             k: Number of movies to return (clamped to the catalog size).
-            sharded: ``None`` or ``False``: the catalog scan on this
-                device. ``True`` (the item-sharded scan across devices)
-                raises.
+            sharded: Force the item-sharded (``True``) or the replicated
+                (``False``) scan; ``None`` follows ``topk_mode``. Both give
+                the same ids and scores, bit for bit.
 
         Returns:
             ``(ids, scores)`` — ``[k]`` arrays for a scalar ``user``, ``[B, k]``
@@ -208,20 +250,20 @@ class PosteriorPredictor:
 
         Raises:
             ValueError: Out-of-range user ids or ``k < 1``.
-            NotImplementedError: ``sharded=True``.
         """
-        if sharded:
-            raise NotImplementedError(_SHARDED_ITEM)
         if k < 1:
             raise ValueError(f"top_k needs k >= 1, got {k}")
         k = min(int(k), self.meta.num_movies)
         scalar = np.ndim(user) == 0
         users = self._queries(np.atleast_1d(np.asarray(user)), self.meta.num_users, "user")
-        lo, hi = self.meta.min_rating, self.meta.max_rating
-        scores = (_catalog_scores(self._U[users], self._Vt) + self._mean).clamp(lo, hi)
-        vals, ids = torch.sort(scores, dim=-1, descending=True, stable=True)
-        ids = ids[:, :k].to(torch.int32).cpu().numpy()
-        vals = vals[:, :k].cpu().numpy()
+        if self._use_sharded_topk(sharded):
+            ids, vals = self._top_k_sharded(users, k)
+        else:
+            lo, hi = self.meta.min_rating, self.meta.max_rating
+            scores = (_catalog_scores(self._U[users], self._Vt) + self._mean).clamp(lo, hi)
+            vals, ids = torch.sort(scores, dim=-1, descending=True, stable=True)
+            ids = ids[:, :k].to(torch.int32).cpu().numpy()
+            vals = vals[:, :k].cpu().numpy()
         return (ids[0], vals[0]) if scalar else (ids, vals)
 
 

@@ -16,9 +16,10 @@ one device: a threaded HTTP server that fields concurrent
   (:class:`repro_torch.serve.predictor.PredictorHandle`); in-flight
   batches drain on the posterior they started with.
 
-Catalog top-k is the scan on the serving device (``topk_mode`` ``"auto"``
-or ``"replicated"``); the item-sharded scan across cards waits for ROADMAP
-Queue 1 item 9.
+Catalog top-k is the scan on the serving device (``topk_mode``
+``"replicated"``) or the item-sharded scan with one item shard per visible
+card (``"sharded"``; ``"auto"`` picks it for several cards and a catalog
+of at least 1,024 items), with the same answers.
 
 Endpoints (JSON over HTTP/1.1, schema in :mod:`repro_torch.serve.schema`):
 
@@ -78,7 +79,7 @@ class BPMFServer:
         adaptive: Skip the deadline wait while traffic is sparse
             (:class:`repro_torch.serve.batcher.MicroBatcher`).
         topk_mode: ``top_k`` execution mode passed to the predictor
-            (``auto`` / ``replicated``; ``sharded`` raises).
+            (``auto`` / ``replicated`` / ``sharded``).
         watch: Poll ``artifact`` for fresh exports and hot-swap them in.
         poll_interval_s: Watcher poll cadence.
         device: ``None`` or ``"cuda"`` serves from the GPU; ``"cpu"``

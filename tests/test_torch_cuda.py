@@ -35,6 +35,9 @@ sweep; a replay from a carry that is not the graph's own (a restored one)
 refills the static buffers first; ``donate_blocks="off"`` hands back
 copies that the next block leaves alone; and an eager block runs under
 ``torch.cuda.set_sync_debug_mode("error")``, so it has no hidden host read.
+
+The item-sharded top-k on the card (1, 3 and 4 item shards, a tie across
+shards) returns the replicated scan's ids and scores bit for bit.
 """
 import threading
 
@@ -442,3 +445,22 @@ def test_eager_block_has_no_hidden_sync(cuda, name):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.isfinite(out[3]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 3, 4])
+def test_sharded_top_k_on_card_equals_the_replicated_scan(cuda, shards):
+    from repro_torch.serve import ArtifactMeta
+    from repro_torch.serve.predictor import serve_devices
+
+    rng = np.random.default_rng(shards)
+    users, movies, K = 50, 1037, 32
+    U = rng.normal(scale=0.5, size=(users, K)).astype(np.float32)
+    V = rng.normal(scale=0.5, size=(movies, K)).astype(np.float32)
+    V[700] = V[3]  # a tie across shards: the lower id first
+    arrays = {"U_mean": U, "V_mean": V, "U_samples": U[None], "V_samples": V[None]}
+    meta = ArtifactMeta(users, movies, K, 3.5, 1.0, 5.0, 1, 1, "synthetic", 1, 0)
+    p = PosteriorPredictor(meta, arrays, "cuda", topk_mode="sharded", item_devices=serve_devices(shards, "cuda"))
+    for k in (1, 10, 400):
+        got, want = p.top_k(np.arange(users), k), p.top_k(np.arange(users), k, sharded=False)
+        assert got[0].tobytes() == want[0].tobytes() and got[1].tobytes() == want[1].tobytes()

@@ -178,10 +178,13 @@ def test_unported_features_raise_naming_the_roadmap_item():
     one = np.ones((1, 1), np.float32)
     arrays = {"U_mean": one, "V_mean": one, "U_samples": one[None], "V_samples": one[None]}
     meta = ArtifactMeta(1, 1, 1, 0.0, 0.0, 3.0, 1, 1, "sequential", 1, 0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        PosteriorPredictor(meta, arrays, "cpu", topk_mode="sharded")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        PosteriorPredictor(meta, arrays, "cpu").top_k(0, 1, sharded=True)
+    # the item-sharded top-k is ported (Queue 1 item 9): it answers as the replicated scan
+    sharded = PosteriorPredictor(meta, arrays, "cpu", topk_mode="sharded")
+    replicated = PosteriorPredictor(meta, arrays, "cpu", topk_mode="replicated")
+    for got, want in zip(sharded.top_k(0, 1), replicated.top_k(0, 1)):
+        np.testing.assert_array_equal(got, want)
+    for got, want in zip(replicated.top_k(0, 1, sharded=True), replicated.top_k(0, 1)):
+        np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError, match="unknown backend"):
         BPMFEngine(BPMFConfig().replace(name="nope"), device="cpu")
 

@@ -249,10 +249,12 @@ def test_predictor_validates_queries_and_modes(artifact, tmp_path):
             call()
     with pytest.raises(ValueError, match="topk_mode"):
         PosteriorPredictor.load(artifact, device="cpu", topk_mode="blocked")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        PosteriorPredictor.load(artifact, device="cpu", topk_mode="sharded")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        p.top_k(0, 3, sharded=True)
+    # the item-sharded scan (ported, Queue 1 item 9) answers as the replicated one
+    sharded = PosteriorPredictor.load(artifact, device="cpu", topk_mode="sharded")
+    for got, want in zip(sharded.top_k(0, 3), p.top_k(0, 3, sharded=False)):
+        np.testing.assert_array_equal(got, want)
+    for got, want in zip(p.top_k(0, 3, sharded=True), p.top_k(0, 3, sharded=False)):
+        np.testing.assert_array_equal(got, want)
     assert p.top_k(0, 3, sharded=False)[0].shape == (3,)
     nostd = save_artifact(str(tmp_path / "nostd"), _meta(num_kept_samples=0), _arrays(seed=2, kept=0))
     q = PosteriorPredictor.load(nostd, device="cpu")
