@@ -98,7 +98,28 @@ Phases (any failure stops the run with a non-zero exit and no result line):
    least 1 M real ratings, every movies-side ring layout) and the balance
    of the movies buckets' device time per real rating; these are measured
    and printed, not gates;
-11. the ``kernels`` JSON line, the card line again, and last the ``ok`` line.
+12. the autotuner (``repro_torch.kernels.autotune``): the whole run uses
+   a fresh, empty cache (``REPRO_TORCH_AUTOTUNE_DIR``), so every engine
+   above ran the dispatch without measurements; ``autotune_cold`` holds
+   the heuristic to that dispatch for every sequential bucket key and every
+   (side, step, shard) key of the ring, and the engines' plans to it;
+   ``autotune_measure``: ``measure_step`` on every distinct ring step key
+   into a fresh cache (the candidates' µs and the winner per key; every
+   candidate first held to the plain version); ``autotune_ring``: a fresh
+   ring engine on that cache, 4 sweeps with the counters reset just before
+   and read just after and held to its plans, RMSE within 1e-3 of the
+   sequential, ``graph_sweeps`` (captured against eager, bit for bit);
+   ``autotune_gram_per_sweep``: every (side, step, shard) replayed with the
+   cold plan and the warmed one in turns, ms per sweep by side;
+   ``autotune_multiproc``: the 2-process gang on the warmed cache plans
+   the same and equals this run bit for bit; ``autotune_ring_per_bucket``:
+   a ring whose cache puts every step on the per-bucket kernel (at the
+   piece width measured fastest), held to its plans' launches, to the
+   sequential RMSE and to its own eager sweeps bit for bit;
+13. ``bench_drivers``: ``benchmarks_torch``'s three benchmarks once each at
+   their smoke size, into a temporary directory, each JSON through
+   ``scripts/check_bench_schema_torch.py``;
+14. the ``kernels`` JSON line, the card line again, and last the ``ok`` line.
 
 Tolerance of a kernel against its plain version: the plain version
 contracts in float64 (the correctly rounded sum), the kernel sums float32
@@ -115,6 +136,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import socket
@@ -873,7 +895,7 @@ def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict, ckpt_root: Path) 
         del st
     return {"engine": engine, "launches": counts["FUSED_LAUNCHES"],
             "reduce_launches": counts["FUSED_REDUCE_LAUNCHES"], "save": save, "peak": peak,
-            "reference": reference,
+            "reference": reference, "plans": plan_table(b.data),
             "expected_per_sweep": {"FUSED_LAUNCHES": expected_per_sweep, "FUSED_REDUCE_LAUNCHES": split_layouts},
             "steady_sweep_s": block_s[-1] / cfg.run.sweeps_per_block}
 
@@ -901,7 +923,8 @@ def phase_ring_layouts(torch, gram_kernel, engine) -> dict:
                 totals["err"] = max(totals["err"], r["err"])
                 totals["launches"] += 1
                 totals["second_passes"] += bool(step.order.pieces.num_split_rows)
-                per_layout.append({"side": side_name, "step": t, "shard": d, "ms": r["ms"], "bmm_ms": r["bmm_ms"]})
+                per_layout.append({"side": side_name, "step": t, "shard": d, "ms": r["ms"],
+                                   "device_ms": r["device_ms"], "bmm_ms": r["bmm_ms"]})
     bound = bound_ms(totals["bytes"], totals["flops"])
     per_sweep = {"phase": "ring_fused_per_sweep", "launches": totals["launches"],
                  "second_passes": totals["second_passes"], "kernel_ms": totals["ms"],
@@ -1319,6 +1342,36 @@ def phase_small_task(np, gram_kernel, BPMFConfig, BPMFEngine, load_dataset, subs
         raise AssertionError(f"posterior_merge at P = {failed} failed its small-task gates: {line}")
 
 
+def expected_launches(torch, gram_kernel, data, device: str = "cuda") -> dict:
+    """The Gram counters one ring sweep moves, from its step plans (the fused layouts and per-bucket decisions).
+
+    On the card a fused plan launches once if it has a live row (and its
+    second pass if a row is split); a per-bucket plan launches once per
+    bucket with rows (and a second pass where its piece width splits the
+    bucket). On the CPU each call runs the plain version instead.
+    """
+    out = dict.fromkeys(COUNTERS, 0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count if device == "cuda" else 1
+    for side, t, i, plan in data.step_plans():
+        if device != "cuda":
+            out["FUSED_PLAIN_CALLS" if plan.fused else "PLAIN_CALLS"] += 1 if plan.fused else len(plan.buckets)
+        elif plan.fused:
+            out["FUSED_LAUNCHES"] += plan.layout.num_rows > 0
+            out["FUSED_REDUCE_LAUNCHES"] += plan.layout.order.pieces.num_split_rows > 0
+        else:
+            for b, dec in zip(getattr(data, side).steps[t][i], plan.buckets):
+                out["LAUNCHES"] += b.B > 0
+                out["REDUCE_LAUNCHES"] += b.B > 0 and -(-b.P // (dec.piece or gram_kernel.piece_width(b.B, b.P, sms))) > 1
+    return out
+
+
+def plan_table(data) -> list:
+    """``[side, step, global shard, impl, pc, piece]`` of every ring step plan: what a process decided."""
+    offset = data.users.shard_offset
+    return [[side, t, offset + i, p.decision.impl, p.decision.pc, p.decision.piece]
+            for side, t, i, p in data.step_plans()]
+
+
 MP_PROCESSES = 2  # the gang of multiproc_ring: two processes sharing the one card over gloo
 MP_TIMEOUT_S = 600
 MP_CHUNK_ROWS = 1_000_000
@@ -1345,7 +1398,7 @@ def files_equal(a: Path, b: Path) -> dict:
             "same_bytes": sorted(fa) == sorted(fb) and all(fa[k] == fb[k] for k in fa)}
 
 
-def mp_worker(tmp: Path, rank: int, world: int, port: int, device: str) -> int:
+def mp_worker(tmp: Path, rank: int, world: int, port: int, device: str, what: str = "all") -> int:
     """One process of the multiproc_ring gang: the ML20M ring (S = 4), its variants and the merge (P = 4).
 
     First every rank builds the kernel library into one fresh directory at
@@ -1353,7 +1406,10 @@ def mp_worker(tmp: Path, rank: int, world: int, port: int, device: str) -> int:
     streams the ratings the main process wrote (``ChunkedRatings`` over the
     files), builds only its own shards, runs every mode from the seed's
     start, and writes what the main process compares (every rank gathers
-    the whole factors). Prints one JSON line per phase.
+    the whole factors). Prints one JSON line per phase, the ring's with the
+    rank's step plans. ``what="ring"`` runs the ring alone, on the library
+    already built and the autotune cache its environment names
+    (``autotune_ring``).
     """
     import numpy as np
     import torch
@@ -1369,7 +1425,7 @@ def mp_worker(tmp: Path, rank: int, world: int, port: int, device: str) -> int:
     from repro_torch.kernels import bpmf_gram as gram_kernel
     from repro_torch.kernels import build
 
-    if device == "cuda":
+    if device == "cuda" and what == "all":
         build._BUILD = tmp / "concurrent_build"
         torch.distributed.barrier()
         built = build.load_library("bpmf_gram")
@@ -1397,13 +1453,14 @@ def mp_worker(tmp: Path, rank: int, world: int, port: int, device: str) -> int:
         return {name: getattr(gram_kernel, name) for name in COUNTERS}
 
     # the ring, S = 4: two shards on each rank, saving at sweep 2 as the single run does
-    cfg = ml20m_config(BPMFConfig, str(tmp / "mp_ring")).replace(name="ring", num_shards=RING_SHARDS)
+    ckpt = tmp / ("mp_ring" if what == "all" else f"mp_ring_{what}")  # multiproc_resume reads mp_ring
+    cfg = ml20m_config(BPMFConfig, str(ckpt)).replace(name="ring", num_shards=RING_SHARDS)
     engine = BPMFEngine(cfg, device=device)
     t0 = time.perf_counter()
     engine.prepare(stream)
     build_s = time.perf_counter() - t0
     b = engine.backend
-    per_sweep = b.data.fused_launches_per_sweep()
+    per_sweep = expected_launches(torch, gram_kernel, b.data, device)
     torch.cuda.reset_peak_memory_stats()
     reset()
     ring = b.ring
@@ -1434,17 +1491,19 @@ def mp_worker(tmp: Path, rank: int, world: int, port: int, device: str) -> int:
         "seconds_per_eager_sweep_by_block": [x / spb for x in block_s],
         "host_staged_bytes_per_sweep_by_block": [x / spb for x, _ in staged],
         "host_staged_ms_per_sweep_by_block": [1e3 * y / spb for _, y in staged],
-        "save_ms": save_ms, "counts": ring_counts, "expected_fused_launches": per_sweep * engine.num_sweeps_done,
-        "max_memory_allocated_bytes": peak,
+        "save_ms": save_ms, "counts": ring_counts, "expected_per_sweep": per_sweep,
+        "max_memory_allocated_bytes": peak, "plans": plan_table(b.data),
     }), flush=True)
     # on a card the kernels launch; a CPU rehearsal of this worker runs their plain versions
-    fused, plain = ("FUSED_LAUNCHES", "FUSED_PLAIN_CALLS") if device == "cuda" else ("FUSED_PLAIN_CALLS", "FUSED_LAUNCHES")
-    if ring_counts[fused] != per_sweep * engine.num_sweeps_done or ring_counts["PLAIN_CALLS"] \
-            or ring_counts[plain] or ring_counts["LAUNCHES"]:
-        raise AssertionError(f"rank {rank}: ring kernel launches {ring_counts}, want {per_sweep} fused per sweep")
+    if ring_counts != {k: v * engine.num_sweeps_done for k, v in per_sweep.items()}:
+        raise AssertionError(f"rank {rank}: ring kernel launches {ring_counts}, want {per_sweep} per sweep")
     if not 0 < b.plan.local_nnz < b.plan.total_nnz:
         raise AssertionError(f"rank {rank} holds {b.plan.local_nnz} of {b.plan.total_nnz} training ratings")
-    out["ring_fused_launches"] = ring_counts[fused]
+    out["ring_fused_launches"] = ring_counts["FUSED_LAUNCHES" if device == "cuda" else "FUSED_PLAIN_CALLS"]
+    if what == "ring":
+        np.savez(tmp / f"mp_{what}_rank{rank}.npz", **out)
+        shutdown()
+        return 0
 
     # ring_async (depth 2) and allgather, 2 sweeps each from the same start
     for mode, depth in (("ring_async", 2), ("allgather", 1)):
@@ -1499,27 +1558,27 @@ def mp_worker(tmp: Path, rank: int, world: int, port: int, device: str) -> int:
             or merge_counts["FUSED_LAUNCHES"]:
         raise AssertionError(f"rank {rank}: merge kernel launches {merge_counts}, want {buckets} per sweep")
     out["merge_launches"] = merge_counts[gram]
-    np.savez(tmp / f"mp_rank{rank}.npz", **out)
+    np.savez(tmp / f"mp_{what}_rank{rank}.npz", **out)
     shutdown()
     return 0
 
 
-def phase_multiproc(torch, np, ml: dict, ring: dict, tmp: Path, card: str, device: str = "cuda") -> dict:
-    """``multiproc_ring``: the gang of two processes on this card, held to the single process's ring bit for bit."""
+def run_gang(np, tmp: Path, card: str, device: str = "cuda", what: str = "all", **env) -> tuple[list, list, float]:
+    """Run ``chip_smoke.py --mp-worker`` as ``MP_PROCESSES`` processes over the ratings files in ``tmp``.
+
+    Returns each rank's saved arrays, every JSON line the ranks printed
+    (echoed with the card) and the gang's wall seconds; raises if a rank
+    fails. ``env`` is added to the children's environment.
+    """
     import subprocess
 
-    coo = ml["coo"]
-    for k in ("rows", "cols", "vals"):
-        np.save(tmp / f"ml20m_{k}.npy", getattr(coo, k))
-    (tmp / "ml20m.json").write_text(json.dumps(
-        {"num_users": coo.num_users, "num_movies": coo.num_movies, "nnz": coo.nnz}))
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mp-worker", str(tmp),
-                               str(r), str(MP_PROCESSES), str(port), device],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=child_env())
+                               str(r), str(MP_PROCESSES), str(port), device, what],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=child_env(**env))
              for r in range(MP_PROCESSES)]
     outs = []
     try:
@@ -1536,8 +1595,26 @@ def phase_multiproc(torch, np, ml: dict, ring: dict, tmp: Path, card: str, devic
         print(json.dumps({**line, "card": card}), flush=True)
     if any(p.returncode for p in procs):
         dump = "\n".join(f"--- rank {r} ---\n{o[-4000:]}" for r, o in enumerate(outs))
-        raise AssertionError(f"the multiproc_ring gang failed {[p.returncode for p in procs]}:\n{dump}")
-    ranks = [dict(np.load(tmp / f"mp_rank{r}.npz")) for r in range(MP_PROCESSES)]
+        raise AssertionError(f"the {what} gang failed {[p.returncode for p in procs]}:\n{dump}")
+    return [dict(np.load(tmp / f"mp_{what}_rank{r}.npz")) for r in range(MP_PROCESSES)], lines, wall
+
+
+def gang_plans(lines: list) -> list:
+    """Every rank's ring plans from the gang's ``multiproc_ring`` lines, sorted by (side, step, shard)."""
+    return sorted(row for line in lines if line.get("mode") == "ring" and "plans" in line for row in line["plans"])
+
+
+def phase_multiproc(torch, np, ml: dict, ring: dict, tmp: Path, card: str, device: str = "cuda") -> dict:
+    """``multiproc_ring``: the gang of two processes on this card, held to the single process's ring bit for bit.
+
+    The ranks' step plans together must be the one process's.
+    """
+    coo = ml["coo"]
+    for k in ("rows", "cols", "vals"):
+        np.save(tmp / f"ml20m_{k}.npy", getattr(coo, k))
+    (tmp / "ml20m.json").write_text(json.dumps(
+        {"num_users": coo.num_users, "num_movies": coo.num_movies, "nnz": coo.nnz}))
+    ranks, lines, wall = run_gang(np, tmp, card, device)
     ref = ring["reference"]
 
     def same(a, b) -> bool:
@@ -1553,10 +1630,14 @@ def phase_multiproc(torch, np, ml: dict, ring: dict, tmp: Path, card: str, devic
                for k, want in (("rows", ref[mode]["rows"]), ("U", ref[mode]["factors"][0]),
                                ("V", ref[mode]["factors"][1]))},
         }
+    same_plans = gang_plans(lines) == sorted(ring["plans"])
     print(json.dumps({"phase": "multiproc_ring", "card": card, "processes": MP_PROCESSES,
-                      "gang_wall_seconds": wall, "bit_identical_to_one_process": identical}), flush=True)
+                      "gang_wall_seconds": wall, "bit_identical_to_one_process": identical,
+                      "plans_equal_one_process": same_plans}), flush=True)
     if not all(v for per_rank in identical.values() for v in per_rank.values()):
         raise AssertionError(f"the 2-process ring differs from the 1-process ring: {identical}")
+    if not same_plans:
+        raise AssertionError("the ranks' ring step plans differ from the one process's")
     return {"ranks": ranks, "tmp": tmp, "lines": lines, "wall": wall,
             "ring_launches": [int(x["ring_fused_launches"]) for x in ranks],
             "merge_launches": [int(x["merge_launches"]) for x in ranks]}
@@ -1660,6 +1741,250 @@ def phase_sharded_topk(torch, np, engine, card: str, device: str = "cuda") -> No
         raise AssertionError(f"sharded top-k differs from the replicated scan: {identical}")
 
 
+AUTOTUNE_ITERS = 10  # timed replays of each candidate of an ML20M ring step
+BENCHMARKS = ("fig2_item_update", "sweep_throughput", "rmse_convergence")
+
+
+def sequential_keys(autotune, engine) -> list:
+    """``(bucket key, planned decision)`` of every bucket of the sequential ML20M data."""
+    data, K = engine.backend.data, engine.backend.core_cfg.K
+    return [(autotune.bucket_key(b.B, b.P, Ns, K), dec)
+            for side, Ns in ((data.users, data.num_movies), (data.movies, data.num_users))
+            for b, dec in zip(side.buckets, side.gram, strict=True)]
+
+
+def phase_autotune_cold(autotune, seq_keys: list, ring_engine, card: str) -> list:
+    """``autotune_cold``: on the run's empty cache, the heuristic is the dispatch without measurements, key by key.
+
+    Every sequential bucket key gives the per-bucket kernel with the piece
+    rule and every (side, step, shard) key of the 4-shard ring the fused
+    kernel at ``pc = 128``, and the engines planned exactly that. Returns
+    the ring's distinct ``(key, bucket shapes)``, which ``autotune_ring``
+    measures.
+    """
+    b = ring_engine.backend
+    data, K = b.data, b.core_cfg.K
+    cache = autotune.get_cache()
+    today_step, today_bucket = autotune.Decision("pallas_fused", pc=128), autotune.Decision("pallas")
+    differ = [k.encode() for k, dec in seq_keys if not autotune.heuristic(k) == dec == today_bucket]
+    planned = 0
+    for name, t, i, plan in data.step_plans():
+        side, opp = (data.users, data.movies) if name == "users" else (data.movies, data.users)
+        key = autotune.step_key([(x.B, x.P) for x in side.steps[t][i]], opp.cap, K, side.cap)
+        planned += 1
+        if not (autotune.heuristic(key) == plan.decision == today_step and plan.layout.nbr.shape[1] == 128):
+            differ.append(key.encode())
+    keys = autotune.workload_step_keys(data, K)
+    distinct = {key.encode(): (key, shapes) for key, shapes in keys}
+    print(json.dumps({"phase": "autotune_cold", "card": card, "cache": cache.path,
+                      "cache_entries": len(cache.entries()), "sequential_bucket_keys": len(seq_keys),
+                      "ring_step_keys": len(keys), "ring_steps_planned": planned,
+                      "distinct_ring_step_keys": len(distinct), "differ_from_today": differ}), flush=True)
+    if cache.entries() or differ or planned != len(keys):
+        raise AssertionError(f"the cold cache does not give today's dispatch: {differ}")
+    return list(distinct.values())
+
+
+def planned_ring(torch, gram_kernel, autotune, BPMFEngine, ml: dict, cache, label: str, card: str) -> dict:
+    """A fresh ML20M ring (S = 4) planned from ``cache``: 4 sweeps, captured, held to its plans.
+
+    The counters are reset just before the sweeps and read just after and
+    must be what the plans launch (:func:`expected_launches`, for the 4
+    replays and the capture's warm-up sweep); the RMSE within 1e-3 of the
+    sequential's. Prints one ``label`` line.
+    """
+    from collections import Counter
+
+    from repro_torch.core import sweep_graph
+
+    autotune.set_cache(cache)
+    try:
+        cfg = ml["cfg"].replace(name="ring", num_shards=RING_SHARDS, checkpoint_dir=None)
+        engine = BPMFEngine(cfg)
+        engine.prepare(ml["coo"])
+    finally:
+        autotune.set_cache(None)
+    b = engine.backend
+    plans = plan_table(b.data)
+    by_decision = dict(Counter(impl + (f"_pc{pc}" if pc else "") + (f"_piece{piece}" if piece else "")
+                               for _, _, _, impl, pc, piece in plans))
+    per_sweep = expected_launches(torch, gram_kernel, b.data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in COUNTERS:
+        setattr(gram_kernel, name, 0)
+    block_s = []
+    t_prev = time.perf_counter()
+    for m in engine.sample():
+        if m.sweep % cfg.run.sweeps_per_block == 0:
+            now = time.perf_counter()
+            block_s.append(now - t_prev)
+            t_prev = now
+    counts = {name: getattr(gram_kernel, name) for name in COUNTERS}
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * (engine.num_sweeps_done + sweep_graph.WARMUP_SWEEPS) for k, v in per_sweep.items()}
+    rmse = [m.rmse_sample for m in engine.history]
+    gap = [abs(a - c) for a, c in zip(rmse, ml["rmse_sample"])]
+    spb = cfg.run.sweeps_per_block
+    print(json.dumps({
+        "phase": label, "card": card, "host_seconds": b.prepare_seconds, "steps_by_decision": by_decision,
+        "counts": counts, "expected_counts": want, "launches_per_replay": b.graph.launches_per_replay,
+        "seconds_per_sweep_by_block": [x / spb for x in block_s], "max_memory_allocated_bytes": peak,
+        "rmse_sample": rmse, "rmse_gap_to_sequential": gap,
+    }), flush=True)
+    if counts != want:
+        raise AssertionError(f"{label}: Gram launches {counts} are not its plans' {want}")
+    if not all(math.isfinite(v) for v in rmse) or max(gap) > 1e-3:
+        raise AssertionError(f"{label}: RMSE {rmse} is not within 1e-3 of the sequential {ml['rmse_sample']}")
+    return {"engine": engine, "plans": plans, "steps_by_decision": by_decision, "counts": counts,
+            "steady_sweep_s": block_s[-1] / spb, "peak": peak}
+
+
+def phase_autotune_ring(torch, np, gram_kernel, autotune, ops, BPMFEngine, dist, ml: dict, ring_cold: dict,
+                        fused_cold: dict, keys: list, tmp: Path, card: str) -> dict:
+    """``autotune_ring``: measure every distinct ML20M ring step key, then run a fresh ring on that cache.
+
+    ``measure_step`` times each candidate (every one first held against the
+    plain version) into a fresh cache; a fresh 4-shard ring engine plans
+    from it and runs 4 sweeps, captured, with the counters reset just before
+    and read just after and held to its plans; its RMSE within 1e-3 of the
+    sequential's; ``graph_sweeps`` holds its captured sweeps to the eager
+    loop bit for bit; every (side, step, shard) is timed as a replayed
+    graph with the cold plan and the warmed one in turns; and the 2-process
+    gang on the same cache must plan the same and equal this run bit for bit.
+    Then ``autotune_ring_per_bucket``: a ring on a cache that records, for
+    every key, the per-bucket kernel at the piece width measured fastest,
+    held to its plans' launches, to the sequential RMSE and, bit for bit,
+    to its own eager sweeps.
+    """
+    from repro_torch.core import sweep_graph
+
+    warm_dir = tmp / "autotune_warm"
+    cache = autotune.AutotuneCache(str(warm_dir / autotune.CACHE_FILE))
+    t_measure = time.perf_counter()
+    for key, shapes in keys:
+        t0 = time.perf_counter()
+        best, timings = autotune.measure_step(shapes, key.Ns, key.K, cap=key.cap, iters=AUTOTUNE_ITERS,
+                                              cache=cache, device="cuda")
+        left_out = sorted(set(autotune.candidates("cuda")) - set(timings))
+        print(json.dumps({"phase": "autotune_measure", "card": card, "key": key.encode(), "buckets": shapes,
+                          "timings_us": timings, "winner": dataclasses.asdict(best), "left_out": left_out,
+                          "seconds": time.perf_counter() - t0}), flush=True)
+        if left_out:
+            raise AssertionError(f"{key.encode()}: candidates {left_out} missed the plain version's band")
+    measure_s = time.perf_counter() - t_measure
+
+    run = planned_ring(torch, gram_kernel, autotune, BPMFEngine, ml, cache, "autotune_ring", card)
+    engine, plans = run["engine"], run["plans"]
+    b, cfg = engine.backend, engine.cfg
+    cold_by_side = {side: sum(x["device_ms"] for x in fused_cold["layouts"] if x["side"] == side)
+                    for side in ("users", "movies")}
+    print(json.dumps({"phase": "autotune_ring_against_cold", "card": card, "measured_keys": len(keys),
+                      "measure_seconds": measure_s, "cache_entries": len(cache.entries()),
+                      "seconds_per_sweep": {"warmed": run["steady_sweep_s"], "cold": ring_cold["steady_sweep_s"]},
+                      "max_memory_allocated_bytes": {"warmed": run["peak"], "cold": ring_cold["peak"]},
+                      "cold_fused_device_ms_by_side": cold_by_side}), flush=True)
+    reference = {"hist": history_rows(engine.history), "factors": engine.factors()}
+    phase_graph_sweeps(torch, engine, run, f"ring S={RING_SHARDS} warmed", card, dist=dist)
+
+    # every (side, step, shard): the cold plan (fused, pc = 128) and the warmed one, replayed in turns
+    state, S, K = engine.state, b.num_shards, cfg.model.K
+    gram = {kind: {"users": 0.0, "movies": 0.0} for kind in ("cold", "warm")}
+    for side_name, t, i, plan in b.data.step_plans():
+        side = getattr(b.data, side_name)
+        X = (state.V if side_name == "users" else state.U)[(i - t) % S]
+        buckets = side.steps[t][i]
+        plans_of = {"cold": ops.StepPlan.for_decision(autotune.Decision("pallas_fused", pc=ops.FUSED_PC), buckets),
+                    "warm": plan}
+        G = torch.zeros(side.cap, K, K, device="cuda")
+        g = torch.zeros(side.cap, K, device="cuda")
+        us = autotune.time_us({kind: (lambda p=p: ops.bpmf_gram_step(G, g, X, buckets, alpha=ALPHA, plan=p))
+                               for kind, p in plans_of.items()}, torch.device("cuda"), iters=20)
+        for kind in us:
+            gram[kind][side_name] += us[kind] / 1e3
+        del plans_of, G, g
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "autotune_gram_per_sweep", "card": card, "replayed_ms_by_side": gram,
+                      "replayed_ms": {kind: sum(v.values()) for kind, v in gram.items()},
+                      "cold_fused_device_ms_by_side": cold_by_side}), flush=True)
+
+    # two processes on the same warmed cache: the same plans, the same bits
+    ranks, lines, wall = run_gang(np, tmp, card, what="ring", REPRO_TORCH_AUTOTUNE_DIR=str(warm_dir))
+
+    def same(a, c) -> bool:
+        return a.dtype == c.dtype and a.shape == c.shape and a.tobytes() == c.tobytes()
+
+    identical = {f"rank{r}": {"ring_metrics": same(got["ring_hist"], reference["hist"]),
+                              "ring_U": same(got["ring_U"], reference["factors"][0]),
+                              "ring_V": same(got["ring_V"], reference["factors"][1])}
+                 for r, got in enumerate(ranks)}
+    same_plans = gang_plans(lines) == sorted(plans)
+    print(json.dumps({"phase": "autotune_multiproc", "card": card, "processes": MP_PROCESSES,
+                      "gang_wall_seconds": wall, "bit_identical_to_one_process": identical,
+                      "plans_equal_one_process": same_plans}), flush=True)
+    if not same_plans or not all(v for per_rank in identical.values() for v in per_rank.values()):
+        raise AssertionError(f"the warmed 2-process ring differs from one process: {identical}, plans {same_plans}")
+    del engine, b, state, run["engine"]
+    torch.cuda.empty_cache()
+
+    # every step on the per-bucket kernel, at the piece width each key measured fastest: recorded, not measured
+    forced = autotune.AutotuneCache(str(tmp / "autotune_per_bucket" / autotune.CACHE_FILE))
+    for key, _ in keys:
+        timings = cache.entries()[key.encode()]["timings_us"]
+        piece = min((label for label in timings if label.startswith("pallas_piece")), key=timings.get)
+        forced.record(key, autotune.candidates("cuda")[piece])
+    per_bucket = planned_ring(torch, gram_kernel, autotune, BPMFEngine, ml, forced, "autotune_ring_per_bucket", card)
+    forced_engine = per_bucket.pop("engine")
+    pb = forced_engine.backend
+    start = (pb.init_state(forced_engine._k_init), pb.init_pred(), pb.init_accum())
+    *eager, rows = pb.sweep_block(forced_engine._k_run, *start, forced_engine.num_sweeps_done, _eager=True)
+    captured = (forced_engine._state, forced_engine._pred, forced_engine._accum)
+    same = [r[:3] for r in rows.cpu().numpy().tolist()] == [list(m) for m in forced_engine.history] and all(
+        torch.equal(x, y) for x, y in zip(sweep_graph.tensors(tuple(eager)), sweep_graph.tensors(captured)))
+    del forced_engine, pb, start, eager, captured
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "autotune_ring_per_bucket", "card": card, "captured_equals_eager": same}), flush=True)
+    if not same:
+        raise AssertionError("the per-bucket ring's captured sweeps differ from its eager ones")
+    return {"launches": run["counts"], "gram": gram, "steps_by_decision": run["steps_by_decision"],
+            "per_bucket_launches": per_bucket["counts"]}
+
+
+def phase_bench_drivers(torch, tmp: Path, card: str) -> None:
+    """``bench_drivers``: each of ``benchmarks_torch``'s benchmarks once on the card at its smoke size.
+
+    Each writes into ``tmp`` (never the committed files) and its JSON must
+    pass ``scripts/check_bench_schema_torch.py``; prints the headline numbers.
+    """
+    import importlib
+    import importlib.util
+
+    sys.path.insert(0, str(ROOT))
+    spec = importlib.util.spec_from_file_location("check_bench_schema_torch",
+                                                  ROOT / "scripts" / "check_bench_schema_torch.py")
+    schema = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(schema)
+    for name in BENCHMARKS:
+        bench = importlib.import_module(f"benchmarks_torch.{name}")
+        t0 = time.perf_counter()
+        payload = bench.run(smoke=True, out_path=str(tmp / f"{name}.json"), device="cuda")
+        line = {"phase": "bench_drivers", "benchmark": name, "card": card, "seconds": time.perf_counter() - t0,
+                "schema_violations": schema.check(name, payload, committed=False)}
+        if name == "fig2_item_update":
+            line.update(cost_model=payload["cost_model"],
+                        winners={k: [v["winner"], v["pc"], v["piece"], v["timings_us"]]
+                                 for k, v in payload["kernel_sweep"].items()})
+        elif name == "sweep_throughput":
+            line.update({k: payload[k] for k in ("parity_ok", "block_transfer_drop_ok", "save_return_latency")},
+                        sweeps_per_sec={n: {k: e[k]["sweeps_per_sec"] for k in e}
+                                        for n, e in payload["backends"].items()})
+        else:
+            line.update({k: payload[k] for k in ("final_rmse", "max_trajectory_gap", "parity_ok")})
+        print(json.dumps(line), flush=True)
+        if line["schema_violations"]:
+            raise AssertionError(f"{name}: {line['schema_violations']}")
+
+
 def timed(fn) -> float:
     """Host seconds of one call (the call returns host arrays, so the device has finished)."""
     t0 = time.perf_counter()
@@ -1685,8 +2010,8 @@ def run_merge_phases(torch, np, gram_kernel, BPMFEngine, subset_merge, ml: dict,
 
 
 def main() -> int:
-    if len(sys.argv) == 7 and sys.argv[1] == "--mp-worker":  # one process of multiproc_ring's gang
-        return mp_worker(Path(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]), sys.argv[6])
+    if len(sys.argv) in (7, 8) and sys.argv[1] == "--mp-worker":  # one process of multiproc_ring's gang
+        return mp_worker(Path(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]), *sys.argv[6:])
     if not (SRC / "repro_torch" / "kernels" / "csrc" / "bpmf_gram.cu").is_file():
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it from the repository",
               file=sys.stderr)
@@ -1697,6 +2022,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
         return 1
+    # a fresh, empty autotune cache for the whole run (the child processes inherit it)
+    cold_cache = Path(tempfile.mkdtemp(prefix="chip_smoke-autotune-"))
+    os.environ["REPRO_TORCH_AUTOTUNE_DIR"] = str(cold_cache)
+    try:
+        return run_all(np, torch)
+    finally:
+        shutil.rmtree(cold_cache, ignore_errors=True)
+
+
+def run_all(np, torch) -> int:
+    """Every phase, in order (module docstring); the ``ok`` line last."""
     sys.path.insert(0, str(SRC))
     from repro_torch.bpmf import BPMFConfig, BPMFEngine, load_dataset
     from repro_torch.core import distributed as dist
@@ -1704,8 +2040,8 @@ def main() -> int:
     from repro_torch.data.sparse import train_test_split
     from repro_torch.core.types import Bucket
     from repro_torch.data.synthetic import ML20M_LIKE, synthetic_ratings
+    from repro_torch.kernels import autotune, ops
     from repro_torch.kernels import bpmf_gram as gram_kernel
-    from repro_torch.kernels import ops
     from repro_torch.kernels.build import load_library
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1733,9 +2069,11 @@ def main() -> int:
         _, heldout = train_test_split(ml["coo"], ml["cfg"].run.test_fraction, ml["cfg"].run.seed)
         seq_rmse = heldout_rmse(np, ml["engine"].predictor(), heldout)
         phase_profile(torch, ml["engine"], ml["steady_sweep_s"])
+        seq_keys = sequential_keys(autotune, ml["engine"])
         del ml["engine"]
         torch.cuda.empty_cache()
         ring = phase_ring(torch, gram_kernel, BPMFEngine, dist, ml, tmp)
+        ring_keys = phase_autotune_cold(autotune, seq_keys, ring["engine"], card)
         phase_graph_sweeps(torch, ring["engine"], ring, f"ring S={RING_SHARDS}", card, dist=dist)
         phase_checkpoint(torch, np, gram_kernel, ring["engine"], ring, "ring_checkpoint", card)
     phase_profile(torch, ring["engine"], ring["steady_sweep_s"], "profile_one_ring_sweep")
@@ -1748,14 +2086,26 @@ def main() -> int:
         torch.cuda.empty_cache()
         merge = run_merge_phases(torch, np, gram_kernel, BPMFEngine, subset_merge, ml, heldout, seq_rmse, mp, card)
         phase_elastic(mp_root / "elastic", card)
+        del merge["engine"]
+        torch.cuda.empty_cache()
+        t_tuned = time.perf_counter()
+        tuned = phase_autotune_ring(torch, np, gram_kernel, autotune, ops, BPMFEngine, dist, ml, ring, fused,
+                                    ring_keys, mp_root, card)
+        tuned_s = time.perf_counter() - t_tuned
     finally:
         shutil.rmtree(mp_root, ignore_errors=True)
-    del merge["engine"], ml["coo"]
+    del ml["coo"]
     torch.cuda.empty_cache()
     t_small = time.perf_counter()
     phase_small_task(np, gram_kernel, BPMFConfig, BPMFEngine, load_dataset, subset_merge, train_test_split)
     print(json.dumps({"phase": "merge_wall_seconds", "ml20m_merge_phases": merge["seconds"],
                       "small_task_with_merges": time.perf_counter() - t_small}), flush=True)
+
+    t_bench = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-bench-") as bench_tmp:
+        phase_bench_drivers(torch, Path(bench_tmp), card)
+    print(json.dumps({"phase": "autotune_wall_seconds", "autotune_ring": tuned_s,
+                      "bench_drivers": time.perf_counter() - t_bench}), flush=True)
 
     phase_yardsticks(ml["gram"], fused)
     gram = ml["gram"]
@@ -1776,6 +2126,8 @@ def main() -> int:
         "merge_launches": merge["launches"],
         "merge_reduce_launches": merge["reduce_launches"],
         "multiproc_merge_launches_per_rank": mp["merge_launches"],
+        "autotune_ring_launches": tuned["launches"]["LAUNCHES"],
+        "autotune_ring_per_bucket_launches": tuned["per_bucket_launches"]["LAUNCHES"],
         "note": f"launches: the 4 replays of the captured sweep and the capture's eager warm-up sweep; "
                 f"ms, plain_ms, bound_ms and library_ms cover the {gram['launches']} launches of one "
                 "ML20M sweep (and their second passes); ms times single calls, device_ms runs of "
@@ -1797,6 +2149,8 @@ def main() -> int:
         "device_ms": fused["kernel_device_ms"],
         "reduce_launches": ring["reduce_launches"],
         "multiproc_ring_launches_per_rank": mp["ring_launches"],
+        "autotune_ring_launches": tuned["launches"]["FUSED_LAUNCHES"],
+        "autotune_ring_steps_by_decision": tuned["steps_by_decision"],
         "note": f"launches: the 4 replays of the captured sweep and the capture's eager warm-up sweep; "
                 f"ms, plain_ms, bound_ms and library_ms cover the {fused['launches']} launches of one "
                 f"ML20M sweep of the {RING_SHARDS}-shard ring (and their second passes), from zero sums; "

@@ -59,7 +59,8 @@ from repro_torch import convert
 from repro_torch.bpmf.config import BPMFConfig
 from repro_torch.checkpoint import host_snapshot_leaf
 from repro_torch.core import distributed as dist
-from repro_torch.core import gibbs, prng, subset_merge
+from repro_torch.core import gibbs, posterior, prng, subset_merge
+from repro_torch.core.gibbs import SweepMetrics
 from repro_torch.core.prediction import PredictionState
 from repro_torch.core.subset_merge import MergeAccum
 from repro_torch.core.sweep_graph import SweepGraph
@@ -308,6 +309,16 @@ class Backend(abc.ABC):
     def _devices(self) -> list[torch.device]:
         """The devices the carry lives on."""
 
+    @abc.abstractmethod
+    def sweep(self, key: torch.Tensor, state, pred: PredictionState):
+        """One Gibbs sweep -> ``(state, pred, SweepMetrics)``, the metrics on the host.
+
+        The legacy per-sweep dispatch (the engine's run loop goes through
+        :meth:`sweep_block`): it runs the sweep eagerly, folds nothing into
+        a posterior accumulator, and leaves :attr:`graph` and its buffers
+        alone, so a captured block replays afterwards as before.
+        """
+
     def captures(self) -> bool:
         """Whether :meth:`sweep_block` replays a CUDA graph: the carry is on one CUDA device, in one process."""
         devices = set(self._devices())
@@ -424,6 +435,11 @@ class Backend(abc.ABC):
 
     @property
     @abc.abstractmethod
+    def test_vals(self) -> torch.Tensor:
+        """Held-out rating values, ``[num_test]`` float32 (uncentered), on :attr:`home`."""
+
+    @property
+    @abc.abstractmethod
     def mean_rating(self) -> float:
         """Training-set mean subtracted before sampling, re-added at predict."""
 
@@ -453,7 +469,7 @@ class SequentialBackend(Backend):
             seed=self.cfg.run.seed,
         )
         t1 = time.perf_counter()
-        self.data = host.to(self.device)
+        self.data = posterior.plan_data(host.to(self.device), self.core_cfg)
         self.prior = self.core_cfg.prior(self.device)
         self.prepare_seconds = {"build": t1 - t0, "upload": time.perf_counter() - t1}
         self._prepared = True
@@ -466,6 +482,10 @@ class SequentialBackend(Backend):
         """One sweep of :func:`repro_torch.core.gibbs.sweep_step`."""
         state, pred, accum, row = gibbs.sweep_step(key, *carry, self.data, self.core_cfg, self.prior)
         return (state, pred, accum), row
+
+    def sweep(self, key: torch.Tensor, state, pred: PredictionState):
+        """One eager sweep of :func:`repro_torch.core.gibbs.gibbs_sweep`."""
+        return gibbs.gibbs_sweep(key, state, pred, self.data, self.core_cfg)
 
     def _devices(self) -> list[torch.device]:
         return [self.device]
@@ -502,6 +522,11 @@ class SequentialBackend(Backend):
         return int(self.data.test.rows.shape[0])
 
     @property
+    def test_vals(self) -> torch.Tensor:
+        """Held-out rating values (uncentered)."""
+        return self.data.test.vals
+
+    @property
     def mean_rating(self) -> float:
         """Training-set mean rating."""
         return float(self.data.mean_rating)
@@ -518,8 +543,9 @@ class DistributedBackend(Backend):
     ``prepare`` builds the ring (:func:`repro_torch.launch.mesh.bpmf_ring`:
     ``BackendConfig.num_shards`` shards over the visible cards, or on the
     CPU, or split over the processes of a job), distributes the data on the
-    host and places each local shard's part on its device, with the fused
-    kernel's per-step layouts. The comm mode is the backend's name
+    host and places each local shard's part on its device, with each ring
+    step's Gram plan (decided from the autotune cache, and the fused
+    layout where the plan is fused). The comm mode is the backend's name
     (``BPMFConfig.core``). State, accumulators and factors are per local
     shard; ``factors`` and ``accum_host`` undo the relabeling.
     """
@@ -532,7 +558,7 @@ class DistributedBackend(Backend):
         (:func:`repro_torch.core.distributed.build_distributed_data_per_host`);
         otherwise one build holds every shard. ``prepare_seconds`` records
         the host wall time of the host build (``"build"``) and of the
-        placement with the fused layouts (``"upload"``).
+        placement with the step plans and their layouts (``"upload"``).
 
         Raises:
             ValueError: S is not a multiple of the job's process count.
@@ -553,8 +579,7 @@ class DistributedBackend(Backend):
         else:
             host, self.plan = dist.build_distributed_data(coo, **common)
         t1 = time.perf_counter()
-        fused = self.core_cfg.gram_impl in ("auto", "pallas_fused")
-        self.data = dist.place_data(host, self.ring, fused=fused)
+        self.data = dist.place_data(host, self.ring, self.core_cfg)
         self.prior = self.core_cfg.prior(self.ring.home)
         if self.ring.home.type == "cuda":
             torch.cuda.synchronize(self.ring.home)
@@ -576,6 +601,10 @@ class DistributedBackend(Backend):
             key, *carry, self.data, self.core_cfg, self.ring, self.prior
         )
         return (state, pred, accum), row
+
+    def sweep(self, key: torch.Tensor, state, pred: PredictionState):
+        """One eager sweep of :func:`repro_torch.core.distributed.dist_gibbs_sweep`."""
+        return dist.dist_gibbs_sweep(key, state, pred, self.data, self.core_cfg, self.ring, self.prior)
 
     def _devices(self) -> list[torch.device]:
         return self.ring.distinct_devices()
@@ -681,6 +710,11 @@ class DistributedBackend(Backend):
         return int(self.data.test.rows.shape[0])
 
     @property
+    def test_vals(self) -> torch.Tensor:
+        """Held-out rating values (uncentered)."""
+        return self.data.test.vals
+
+    @property
     def mean_rating(self) -> float:
         """Training-set mean rating."""
         return float(self.data.mean_rating)
@@ -766,6 +800,8 @@ class PosteriorMergeBackend(Backend):
         train_subs = subset_merge.split_by_users(train, self.user_sets)
         test_subs = subset_merge.split_by_users(test, self.user_sets)
         self._test_counts = [t.nnz for t in test_subs]
+        self._test_vals = np.concatenate([np.asarray(t.vals, np.float32) for t in test_subs]) \
+            if test_subs else np.zeros(0, np.float32)
         self._owner = [c % world for c in range(P)]
         self._local_chains = [c for c in range(P) if self._owner[c] == process_index()]
         host = {
@@ -785,7 +821,8 @@ class PosteriorMergeBackend(Backend):
             self.devices = [here if c in host else None for c in range(P)]
         else:
             self.devices = list(bpmf_ring(P, self.device).devices)
-        self.chain_data = [host[c].to(self.devices[c]) if c in host else None for c in range(P)]
+        self.chain_data = [posterior.plan_data(host[c].to(self.devices[c]), self.core_cfg) if c in host else None
+                           for c in range(P)]
         priors = {dev: self.core_cfg.prior(dev) for dev in dict.fromkeys(self._local_devices())}
         self.priors = [priors.get(dev) for dev in self.devices]
         if self.home.type == "cuda":
@@ -903,6 +940,25 @@ class PosteriorMergeBackend(Backend):
         )
         return carry, row
 
+    def sweep(self, key: torch.Tensor, state, pred):
+        """One eager sweep of every local chain (:func:`repro_torch.core.gibbs.gibbs_sweep`'s body) and the combined metrics.
+
+        ``state`` and ``pred`` are the per-chain tuples; another process's
+        chains stay ``None``.
+        """
+        outs = {
+            c: gibbs._sweep_body(subset_merge.chain_key(key, c).to(self.devices[c]), state[c], pred[c],
+                                 self.chain_data[c], self.core_cfg, self.priors[c])
+            for c in self._local_chains
+        }
+        row = self._combine_metric_rows(self._global_rows({c: o[2][None] for c, o in outs.items()}))[0]
+        C = range(self.num_partitions)
+        return (
+            tuple(outs[c][0] if c in outs else None for c in C),
+            tuple(outs[c][1] if c in outs else None for c in C),
+            SweepMetrics(*map(float, row[:3].cpu().numpy())),
+        )
+
     def _devices(self) -> list[torch.device]:
         return self._local_devices()
 
@@ -984,6 +1040,11 @@ class PosteriorMergeBackend(Backend):
         return sum(self._test_counts)
 
     @property
+    def test_vals(self) -> torch.Tensor:
+        """Held-out rating values of every chain's subset, in chain order (uncentered)."""
+        return torch.from_numpy(self._test_vals).to(self.home)
+
+    @property
     def mean_rating(self) -> float:
         """Global training-set mean rating."""
         return self._mean
@@ -992,3 +1053,37 @@ class PosteriorMergeBackend(Backend):
     def rating_range(self) -> tuple[float, float]:
         """(lo, hi) clip range of all ratings."""
         return self._range
+
+
+# --------------------------------------------------------------------------
+# Legacy run loop (kept for repro_torch.core.gibbs.run)
+# --------------------------------------------------------------------------
+
+
+def run_sequential_prepared(
+    key: torch.Tensor,
+    data,
+    core_cfg,
+    callback=None,
+) -> tuple[BPMFState, PredictionState, list[SweepMetrics]]:
+    """The JAX package's pre-engine ``core.gibbs.run`` loop over built ``BPMFData``.
+
+    ``core_cfg.num_sweeps`` blocks of one sweep through
+    :func:`repro_torch.core.gibbs.gibbs_sweep_block` (eager, on ``data``'s
+    device), so its samples equal an engine run's bit for bit at any block
+    size; ``callback(state, metrics)`` after each sweep.
+    """
+    device = data.mean_rating.device
+    k_init, k_run = prng.split(key)
+    state = gibbs.init_state(k_init, data.num_users, data.num_movies, core_cfg)
+    pred = PredictionState.init(data.test.rows.shape[0], device)
+    accum = PosteriorAccum.init(data.num_users, data.num_movies, core_cfg.K, 0, device)
+    prior = core_cfg.prior(device)
+    history: list[SweepMetrics] = []
+    for _ in range(core_cfg.num_sweeps):
+        state, pred, accum, rows = gibbs.gibbs_sweep_block(k_run, state, pred, accum, data, core_cfg, 1, prior)
+        metrics = SweepMetrics(*map(float, rows[0, :3].cpu().numpy()))
+        history.append(metrics)
+        if callback is not None:
+            callback(state, metrics)
+    return state, pred, history

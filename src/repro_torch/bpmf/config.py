@@ -208,6 +208,7 @@ class BPMFConfig:
         return core_types.BPMFConfig(
             K=self.model.K,
             alpha=self.model.alpha,
+            num_sweeps=self.run.num_sweeps,
             burn_in=self.run.burn_in,
             beta0=self.model.beta0,
             sample_dtype=self.model.sample_dtype,

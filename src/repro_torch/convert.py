@@ -76,10 +76,16 @@ def key_to_data(key: torch.Tensor) -> np.ndarray:
 
 
 def to_tree(obj: Any) -> Any:
-    """Tree of numpy leaves with the JAX package's field names and dtypes."""
+    """Tree of numpy leaves with the JAX package's field names and dtypes.
+
+    Fields the port alone has (``metadata={"port_only": True}``: the Gram
+    dispatch decided for the data) are left out.
+    """
     if dataclasses.is_dataclass(obj):
         out = {}
         for f in dataclasses.fields(obj):
+            if f.metadata.get("port_only"):
+                continue
             v = getattr(obj, f.name)
             out[f.name] = np.asarray(to_tree(v), np.int32) if f.name in _INT_SCALARS else to_tree(v)
         return out

@@ -109,21 +109,30 @@ class RingSide:
     (-1 = padding); ``orig_ids[i]`` gives each row's original item id
     (-1 = padding slot), which keys the per-item noise.
 
-    ``fused[t][i]`` is the step's flattened layout for the fused kernel
-    (``None`` where the step has no buckets), built once on the shard's
-    device by :func:`place_data`; empty when the run does not use it.
+    ``plans[t][i]`` is the step's Gram dispatch (``ops.StepPlan``: the
+    fused kernel's flattened layout, or one decision per bucket; ``None``
+    where the step has no buckets), decided and built once on the shard's
+    device by :func:`place_data`; empty when the data was placed without a
+    config, and then each step is planned at its call.
     """
 
     steps: tuple[tuple[tuple[Bucket, ...], ...], ...]
     orig_ids: tuple[torch.Tensor, ...]  # per local shard [cap] int32
     cap: int = 0
     num_items: int = 0
-    fused: tuple[tuple[ops.FusedStep | None, ...], ...] = ()
+    plans: tuple[tuple[ops.StepPlan | None, ...], ...] = dataclasses.field(
+        default=(), metadata={"port_only": True})
     shard_offset: int = 0
 
     @property
     def num_steps(self) -> int:
         return len(self.steps)
+
+    @property
+    def fused(self) -> tuple[tuple[ops.FusedStep | None, ...], ...]:
+        """``fused[t][i]``: the fused layout of each planned step (``None`` where not fused); empty when none is."""
+        layouts = tuple(tuple(p.layout if p is not None else None for p in per_step) for per_step in self.plans)
+        return layouts if any(f is not None for per_step in layouts for f in per_step) else ()
 
     @property
     def num_shards(self) -> int:
@@ -153,12 +162,17 @@ class DistBPMFData:
     max_rating: float = float("inf")
 
     def fused_launches_per_sweep(self) -> int:
-        """Fused-kernel launches one sweep makes: the (side, step, shard) layouts with a live row."""
+        """Fused-kernel launches one sweep makes: the (side, step, shard) fused layouts with a live row."""
         return sum(
             1 for side in (self.users, self.movies)
             for per_step in side.fused for f in per_step
             if f is not None and f.num_rows > 0
         )
+
+    def step_plans(self) -> list[tuple[str, int, int, ops.StepPlan]]:
+        """``(side name, step, local shard, plan)`` of every planned ring step, users side first."""
+        return [(name, t, i, p) for name, side in (("users", self.users), ("movies", self.movies))
+                for t, per_step in enumerate(side.plans) for i, p in enumerate(per_step) if p is not None]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -810,31 +824,40 @@ def build_distributed_data_per_host(
     return data, plan
 
 
-def _place_side(side: RingSide, ring: Ring, fused: bool) -> RingSide:
+def _place_side(side: RingSide, opp_cap: int, ring: Ring, cfg: BPMFConfig | None) -> RingSide:
     devs = ring.devices
     steps = tuple(
         tuple(tuple(b.to(devs[d]) for b in per_shard) for d, per_shard in enumerate(per_step))
         for per_step in side.steps
     )
-    layouts = ()
-    if fused:
-        layouts = tuple(
-            tuple(ops.fused_step(bs) if bs else None for bs in per_step) for per_step in steps
+    plans = ()
+    if cfg is not None:
+        plans = tuple(
+            tuple(
+                ops.plan_step(bs, opp_cap, cfg.K, side.cap, compute_dtype=cfg.compute_dtype,
+                              gram_impl=cfg.gram_impl, backend=devs[d].type) if bs else None
+                for d, bs in enumerate(per_step)
+            )
+            for per_step in steps
         )
     return dataclasses.replace(
         side,
         steps=steps,
         orig_ids=tuple(o.to(devs[d]) for d, o in enumerate(side.orig_ids)),
-        fused=layouts,
+        plans=plans,
     )
 
 
-def place_data(data: DistBPMFData, ring: Ring, fused: bool = True) -> DistBPMFData:
+def place_data(data: DistBPMFData, ring: Ring, cfg: BPMFConfig | None = None) -> DistBPMFData:
     """Local shard i's buckets and ids on ``ring.devices[i]``, the test set on the ring's home.
 
-    With ``fused`` every (side, step, shard) also gets its flattened layout
-    and item -> chunk order (:func:`repro_torch.kernels.ops.fused_step`),
-    built once here because the layout is the same every sweep.
+    With ``cfg`` every (side, step, shard) also gets its Gram dispatch
+    (:func:`repro_torch.kernels.ops.plan_step` for ``cfg.gram_impl``, from
+    the autotune cache or its heuristic), with the fused layout and item ->
+    chunk order where the plan is fused: decided and built once here,
+    because the layout is the same every sweep and a captured sweep must
+    run what was decided. Shards share their bucket shapes at a step, so
+    every shard of a step, in every process, takes the same decision.
     """
     if data.num_shards != ring.num_shards:
         raise ValueError(f"data has {data.num_shards} shards, the ring {ring.num_shards}")
@@ -844,8 +867,8 @@ def place_data(data: DistBPMFData, ring: Ring, fused: bool = True) -> DistBPMFDa
     home = ring.home
     return dataclasses.replace(
         data,
-        users=_place_side(data.users, ring, fused),
-        movies=_place_side(data.movies, ring, fused),
+        users=_place_side(data.users, data.movies.cap, ring, cfg),
+        movies=_place_side(data.movies, data.users.cap, ring, cfg),
         test=DistTestSet(*(getattr(data.test, f).to(home) for f in ("rows", "cols", "vals"))),
         mean_rating=data.mean_rating.to(home),
     )
@@ -857,11 +880,11 @@ def place_data(data: DistBPMFData, ring: Ring, fused: bool = True) -> DistBPMFDa
 
 
 def _accumulate(G, g, X_src, side: RingSide, t: int, i: int, cfg: BPMFConfig) -> None:
-    """Add ring step t's contributions to local shard i's ``(G, g)`` (``ops.bpmf_gram_step``)."""
+    """Add ring step t's contributions to local shard i's ``(G, g)`` (``ops.bpmf_gram_step``, its plan)."""
     ops.bpmf_gram_step(
         G, g, X_src, side.steps[t][i],
         alpha=cfg.alpha, compute_dtype=cfg.compute_dtype, gram_impl=cfg.gram_impl,
-        layout=side.fused[t][i] if side.fused else None,
+        plan=side.plans[t][i] if side.plans else None,
     )
 
 

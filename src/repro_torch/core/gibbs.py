@@ -135,6 +135,22 @@ def sweep_step(
     return state, pred_state, accum, row
 
 
+def gibbs_sweep(
+    key: torch.Tensor,
+    state: BPMFState,
+    pred_state: PredictionState,
+    data: BPMFData,
+    cfg: BPMFConfig,
+) -> tuple[BPMFState, PredictionState, SweepMetrics]:
+    """One Gibbs sweep and its metrics on the host (the JAX package's per-sweep entry point).
+
+    The sweep of :func:`gibbs_sweep_block` without the posterior
+    accumulator: the same state, predictions and metrics, bit for bit.
+    """
+    state, pred_state, row = _sweep_body(key, state, pred_state, data, cfg)
+    return state, pred_state, SweepMetrics(*map(float, row[:3].cpu().numpy()))
+
+
 def gibbs_sweep_block(
     key: torch.Tensor,
     state: BPMFState,
@@ -163,3 +179,20 @@ def gibbs_sweep_block(
         state, pred_state, accum, row = sweep_step(key, state, pred_state, accum, data, cfg, prior)
         rows.append(row)
     return state, pred_state, accum, torch.stack(rows)
+
+
+def run(
+    key: torch.Tensor,
+    data: BPMFData,
+    cfg: BPMFConfig,
+    callback=None,
+) -> tuple[BPMFState, PredictionState, list[SweepMetrics]]:
+    """Deprecated entry point; prefer ``repro_torch.bpmf.BPMFEngine``.
+
+    ``cfg.num_sweeps`` sweeps on ``data`` (already on its device) through
+    :func:`repro_torch.bpmf.backends.run_sequential_prepared`, the JAX
+    package's legacy loop; ``callback(state, metrics)`` after each.
+    """
+    from repro_torch.bpmf.backends import run_sequential_prepared
+
+    return run_sequential_prepared(key, data, cfg, callback)

@@ -13,14 +13,21 @@ followed by a batched Cholesky and triangular solves.
 Noise is drawn per *global item id* with ``prng.fold_in``, so every layout
 draws the same sample for the same item, and the same one the JAX package
 draws from the same key.
+
+Which Gram op a bucket runs is decided once, when a backend builds its
+data (:func:`plan_data`), and kept beside the buckets
+(``BucketedSide.gram``); a sweep, eager or captured, runs what was
+decided.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.core import prng
-from repro_torch.core.types import Bucket, BucketedSide, HyperParams
-from repro_torch.kernels import ops
+from repro_torch.core.types import BPMFConfig, BPMFData, Bucket, BucketedSide, HyperParams
+from repro_torch.kernels import autotune, ops
 
 
 def item_noise(key: torch.Tensor, item_ids: torch.Tensor, K: int) -> torch.Tensor:
@@ -34,11 +41,12 @@ def gram_terms(
     alpha: float,
     compute_dtype: torch.dtype = torch.float32,
     gram_impl: str = "auto",
+    piece: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(G, g) with G = alpha * sum_j x_j x_j^T  [B,K,K], g = alpha * sum_j x_j r_j [B,K]."""
     G, g = ops.bpmf_gram(
         X_opp, bucket.nbr, bucket.val, bucket.nnz,
-        compute_dtype=compute_dtype, impl=gram_impl,
+        compute_dtype=compute_dtype, impl=gram_impl, piece=piece,
     )
     return alpha * G, alpha * g
 
@@ -75,6 +83,7 @@ def update_bucket(
     alpha: float,
     compute_dtype: torch.dtype = torch.float32,
     gram_impl: str = "auto",
+    piece: int | None = None,
 ) -> None:
     """Sample all items of one bucket into ``X_out`` in place.
 
@@ -83,7 +92,7 @@ def update_bucket(
     way JAX's ``mode="drop"`` scatter drops them. Plain indexing with -1
     would overwrite the last real item.
     """
-    G, g = gram_terms(X_opp, bucket, alpha, compute_dtype, gram_impl)
+    G, g = gram_terms(X_opp, bucket, alpha, compute_dtype, gram_impl, piece)
     new = sample_from_terms(key, bucket.item_ids, G, g, hyper)
     dump = X_out.shape[0] - 1
     ids = bucket.item_ids.long()
@@ -103,12 +112,47 @@ def update_side(
     """One half-sweep: a new ``X_side`` with every item resampled given ``X_opp``.
 
     Buckets run smallest-P first (the paper's cheap-items-first order).
-    ``X_side`` itself is not modified.
+    A planned side runs each bucket's decision (``side.gram``), an
+    unplanned one ``gram_impl``. ``X_side`` itself is not modified.
     """
     X_out = torch.cat([X_side, X_side.new_zeros(1, X_side.shape[1])])
-    for bucket in side.buckets:
-        update_bucket(key, X_out, X_opp, bucket, hyper, alpha, compute_dtype, gram_impl)
+    for bucket, dec in zip(side.buckets, side.gram or (None,) * len(side.buckets), strict=True):
+        impl, piece = (gram_impl, None) if dec is None else (dec.impl, dec.piece)
+        update_bucket(key, X_out, X_opp, bucket, hyper, alpha, compute_dtype, impl, piece)
     return X_out[:-1]
+
+
+def plan_side(side: BucketedSide, Ns: int, K: int, compute_dtype: torch.dtype = torch.float32,
+              gram_impl: str = "auto", backend: str = "cuda") -> BucketedSide:
+    """``side`` with each bucket's Gram dispatch decided (``BucketedSide.gram``).
+
+    ``"auto"`` takes ``autotune.decide`` of the bucket's key (a cache
+    entry, else the heuristic); any other ``gram_impl`` is taken as it is.
+    ``Ns`` is the row count of the opposite factors.
+
+    Raises:
+        ValueError: An unknown ``gram_impl``, or K above the kernels' limit
+            on a CUDA key.
+    """
+    if gram_impl not in ops.GRAM_IMPLS:
+        raise ValueError(f"unknown gram_impl {gram_impl!r}; one of {'|'.join(ops.GRAM_IMPLS)}")
+    decisions = tuple(
+        autotune.decide(autotune.bucket_key(b.B, b.P, Ns, K, compute_dtype, backend))
+        if gram_impl == "auto" else autotune.Decision(gram_impl)
+        for b in side.buckets
+    )
+    return dataclasses.replace(side, gram=decisions)
+
+
+def plan_data(data: BPMFData, cfg: BPMFConfig) -> BPMFData:
+    """Both sides of ``data`` planned (:func:`plan_side`) for ``cfg`` on the data's device."""
+    backend = data.mean_rating.device.type
+    common = dict(K=cfg.K, compute_dtype=cfg.compute_dtype, gram_impl=cfg.gram_impl, backend=backend)
+    return dataclasses.replace(
+        data,
+        users=plan_side(data.users, data.num_movies, **common),
+        movies=plan_side(data.movies, data.num_users, **common),
+    )
 
 
 def update_item_naive(

@@ -101,6 +101,11 @@ class BPMFState(_Movable):
     hyper_V: HyperParams
     sweep: torch.Tensor  # 0-dim int32, number of completed sweeps
 
+    @property
+    def K(self) -> int:
+        """Latent rank."""
+        return self.U.shape[-1]
+
 
 @dataclasses.dataclass(frozen=True)
 class PosteriorAccum(_Movable):
@@ -160,13 +165,26 @@ class Bucket(_Movable):
     def P(self) -> int:
         return self.nbr.shape[1]
 
+    def mask(self) -> torch.Tensor:
+        """``[B, P]`` 1.0 at real neighbor slots, 0.0 at padding, in ``val``'s dtype."""
+        return (torch.arange(self.P, dtype=torch.int32, device=self.nnz.device)[None, :]
+                < self.nnz[:, None]).to(self.val.dtype)
+
 
 @dataclasses.dataclass(frozen=True)
 class BucketedSide(_Movable):
-    """All buckets of one side (the per-user or per-movie CSR, padded)."""
+    """All buckets of one side (the per-user or per-movie CSR, padded).
+
+    ``gram[i]`` is the Gram dispatch decided for bucket i once, when a
+    backend builds its data (:func:`repro_torch.core.posterior.plan_side`);
+    empty when the side was not planned, and then each sweep resolves the
+    configured ``gram_impl`` at the call.
+    """
 
     buckets: tuple[Bucket, ...]
     num_items: int = 0
+    # kernels.autotune.Decision per bucket; the port's own, not in the JAX tree
+    gram: tuple[Any, ...] = dataclasses.field(default=(), metadata={"port_only": True})
 
     def total_ratings(self) -> int:
         return int(sum(int(b.nnz.sum()) for b in self.buckets))
@@ -205,6 +223,7 @@ class BPMFConfig:
 
     K: int = 32
     alpha: float = 2.0  # rating noise precision
+    num_sweeps: int = 50  # the legacy ``gibbs.run`` loop's length
     burn_in: int = 8
     beta0: float = 2.0
     sample_dtype: torch.dtype = torch.float32

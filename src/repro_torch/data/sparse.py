@@ -33,6 +33,10 @@ class RatingsCOO:
     def nnz(self) -> int:
         return int(self.rows.shape[0])
 
+    def transpose(self) -> "RatingsCOO":
+        """The movies x users matrix: rows and columns (and their counts) swapped."""
+        return RatingsCOO(self.cols, self.rows, self.vals, self.num_movies, self.num_users)
+
     def chunked(self, chunk_rows: int = 1_000_000) -> "ChunkedRatings":
         """This COO as a re-iterable stream of chunks of ``chunk_rows`` ratings."""
 

@@ -21,8 +21,8 @@ source note says how the design answers: a long row is split into pieces
 that run on separate blocks, and a second pass adds the pieces in a fixed
 order; the products are register-tiled; the gather is asynchronous and
 double-buffered. Here the wrapper plans the pieces: :func:`piece_width`
-gives the per-bucket kernel's piece of at most ``PIECE_RATINGS`` ratings,
-and :func:`chunk_order` cuts each destination row of a fused layout into
+gives the per-bucket kernel's piece of at most ``PIECE_RATINGS`` ratings
+(a caller may pass its own, as the autotuner's decisions do), and :func:`chunk_order` cuts each destination row of a fused layout into
 runs of at most ``PIECE_RATINGS // pc`` chunks, once per layout. Scratch
 for the pieces' partial sums is allocated here with ``torch.empty``.
 
@@ -168,12 +168,17 @@ def bpmf_gram(
     val: torch.Tensor,
     nnz: torch.Tensor,
     compute_dtype: torch.dtype = torch.float32,
+    piece: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(G [B, K, K], g [B, K])`` in float32: the CUDA kernel, or the plain version on CPU.
 
+    ``piece`` is the kernel's piece width W, the most ratings of one item
+    that one block sums (default: :func:`piece_width`); the plain version
+    has no pieces.
+
     Raises:
-        ValueError: Wrong dtypes, shapes, devices, non-contiguous inputs or
-            K outside ``[1, 128]`` (CUDA tensors).
+        ValueError: Wrong dtypes, shapes, devices, non-contiguous inputs,
+            K outside ``[1, 128]`` or a piece width below 1 (CUDA tensors).
         RuntimeError: The kernel failed to build or to launch.
     """
     if X.device.type == "cpu":
@@ -181,8 +186,10 @@ def bpmf_gram(
     if X.device.type != "cuda":
         raise ValueError(f"bpmf_gram runs on CPU or CUDA tensors, got {X.device}")
     _check(X, nbr, val, nnz, compute_dtype)
+    if piece is not None and piece < 1:
+        raise ValueError(f"a piece holds at least one rating, got piece={piece}")
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    return _launch_gram(_library(), X, nbr, val, nnz, compute_dtype, _num_sms(X.device), stream)
+    return _launch_gram(_library(), X, nbr, val, nnz, compute_dtype, _num_sms(X.device), stream, piece)
 
 
 def bucket_pieces(nnz: np.ndarray, P: int, W: int) -> tuple[np.ndarray, ...]:
@@ -202,8 +209,11 @@ def bucket_pieces(nnz: np.ndarray, P: int, W: int) -> tuple[np.ndarray, ...]:
     return item, lo, np.minimum(n[item], lo + W), n[item] <= W
 
 
-def _launch_gram(lib, X, nbr, val, nnz, compute_dtype, num_sms: int, stream):
-    """Allocate the outputs and scratch and launch the per-bucket kernel (and its second pass)."""
+def _launch_gram(lib, X, nbr, val, nnz, compute_dtype, num_sms: int, stream, piece: int | None = None):
+    """Allocate the outputs and scratch and launch the per-bucket kernel (and its second pass).
+
+    ``piece`` is the piece width W; ``None`` takes :func:`piece_width`'s.
+    """
     global LAUNCHES, REDUCE_LAUNCHES
     B, P = nbr.shape
     Ns, K = X.shape
@@ -211,7 +221,7 @@ def _launch_gram(lib, X, nbr, val, nnz, compute_dtype, num_sms: int, stream):
     g = torch.empty(B, K, dtype=torch.float32, device=X.device)
     if B == 0:
         return G, g
-    W = piece_width(B, P, num_sms)
+    W = piece or piece_width(B, P, num_sms)
     pieces = max(1, -(-P // W))
     partials = torch.empty(B * pieces * _entries(K) if pieces > 1 else 0, dtype=torch.float32,
                            device=X.device)

@@ -1,22 +1,32 @@
 """Dispatch of the Gram ops: per bucket, and per ring step.
 
 ``impl`` / ``gram_impl`` take the JAX package's spellings so that configs
-carry over. For one bucket (:func:`bpmf_gram`):
+carry over, and ``"auto"`` resolves through :mod:`repro_torch.kernels.autotune`
+(a measured cache entry, else its heuristic). For one bucket
+(:func:`bpmf_gram`):
 
-  - ``"auto"``, ``"pallas"``, ``"pallas_fused"``: the hand-written kernel
+  - ``"pallas"``, ``"pallas_fused"``: the hand-written kernel
     (:func:`repro_torch.kernels.bpmf_gram.bpmf_gram`), which launches the
     CUDA kernel on a CUDA tensor and takes the plain version on a CPU one.
     ``"pallas_fused"`` names the fused ring-step kernel in the JAX package;
-    outside a ring step it means the per-bucket kernel there too;
+    outside a ring step it means the per-bucket kernel there too. ``piece``
+    sets the kernel's piece width (default: its ``piece_width`` rule);
   - ``"xla"``: the plain PyTorch version. It runs on CPU tensors only and
-    raises on a CUDA tensor instead of quietly replacing the kernel.
+    raises on a CUDA tensor instead of quietly replacing the kernel;
+  - ``"auto"``: the decision for the bucket's ``autotune.bucket_key``. On
+    a CUDA tensor without a cache entry that is the kernel with the rule,
+    on a CPU tensor the plain version.
 
-For one ring step (:func:`bpmf_gram_step`), ``"auto"`` and
-``"pallas_fused"`` launch the fused kernel once over the step's flattened
-chunk layout (:func:`flatten_step`); ``"pallas"`` and ``"xla"`` run the
-per-bucket op and add each bucket into ``(G, g)``. The JAX package's
-autotune cache and measured step decisions are not ported: on a GPU the
-fused kernel is the one that carries the ring.
+For one ring step (:func:`bpmf_gram_step`) the dispatch is a
+:class:`StepPlan`: the fused kernel launched once over the step's
+flattened chunk layout (:func:`fused_step`) at the decided chunk width, or
+the per-bucket op for each bucket with its own decision, added into
+``(G, g)``. :func:`plan_step` makes the plan as the JAX package's
+``bpmf_gram_step`` resolves it: ``"auto"`` looks up the step key first;
+without an entry the heuristic decides fused or not, and when not, each
+bucket resolves its own bucket key, so one step can mix implementations
+from a warmed cache. The ring backends plan every (side, step, shard)
+once, when they place their data, and capture what was planned.
 """
 from __future__ import annotations
 
@@ -24,16 +34,14 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels import bpmf_gram as gram_kernel
+from repro_torch.kernels.autotune import Decision
 from repro_torch.utils import round_up
 
-# Chunk width of the fused layout. The JAX package sizes it from the TPU's
-# VMEM budget; on Hopper the kernel stages 64 gathered [x | val] rows in
-# shared memory at a time, and 128 = two such tiles keeps a chunk's
-# neighbor ids and values in one 512-byte line each. It costs padding only
-# in the layout, not in the kernel, which reads cnt[c] rows: a bucket with
-# P < 128 pads its rows to 128 slots (8 bytes each).
-FUSED_PC = 128
+# Chunk width of the fused layout without a measurement (autotune.FUSED_PC
+# says why 128).
+FUSED_PC = autotune.FUSED_PC
 # Chunk-count multiple of the layout, as in the JAX package; the CUDA
 # kernel does not need it (padding chunks are dead and skipped).
 FUSED_TB = 8
@@ -49,6 +57,7 @@ def bpmf_gram(
     *,
     compute_dtype: torch.dtype = torch.float32,
     impl: str = "auto",
+    piece: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The per-bucket gather+Gram op; returns ``(G [B, K, K], g [B, K])``.
 
@@ -57,6 +66,10 @@ def bpmf_gram(
     """
     if impl not in GRAM_IMPLS:
         raise ValueError(f"unknown impl {impl!r}; one of {'|'.join(GRAM_IMPLS)}")
+    if impl == "auto":
+        B, P = nbr.shape
+        dec = autotune.decide(autotune.bucket_key(B, P, X.shape[0], X.shape[1], compute_dtype, X.device.type))
+        impl, piece = dec.impl, piece or dec.piece
     if impl == "xla":
         if X.device.type != "cpu":
             raise ValueError(
@@ -64,7 +77,7 @@ def bpmf_gram(
                 f"tensors; on {X.device} use 'auto' (the CUDA kernel)"
             )
         return gram_kernel.bpmf_gram_plain(X, nbr, val, nnz, compute_dtype)
-    return gram_kernel.bpmf_gram(X, nbr, val, nnz, compute_dtype)
+    return gram_kernel.bpmf_gram(X, nbr, val, nnz, compute_dtype, piece)
 
 
 def _pad_rows(x: torch.Tensor, multiple: int, fill: int = 0) -> torch.Tensor:
@@ -142,6 +155,65 @@ def fused_step(buckets, pc: int = FUSED_PC, tb: int = FUSED_TB) -> FusedStep:
     return FusedStep(nbr, val, item, cnt, gram_kernel.chunk_order(item, cnt, piece_chunks))
 
 
+@dataclasses.dataclass(frozen=True)
+class StepPlan:
+    """A ring step's Gram dispatch, resolved once.
+
+    ``decision`` is the step's own. A fused step carries its layout
+    (``layout``, at ``decision.pc``); any other step carries one decision
+    per bucket (``buckets``), which may differ between buckets.
+    """
+
+    decision: Decision
+    layout: FusedStep | None = None
+    buckets: tuple[Decision, ...] = ()
+
+    @property
+    def fused(self) -> bool:
+        return self.layout is not None
+
+    @classmethod
+    def for_decision(cls, decision: Decision, buckets) -> "StepPlan":
+        """The plan that runs ``decision`` for the whole step (every bucket alike when not fused)."""
+        if decision.impl == "pallas_fused":
+            return cls(decision, layout=fused_step(buckets, decision.pc or FUSED_PC))
+        return cls(decision, buckets=(Decision(decision.impl, piece=decision.piece),) * len(buckets))
+
+
+def plan_step(buckets, Ns: int, K: int, cap: int, *, compute_dtype: torch.dtype = torch.float32,
+              gram_impl: str = "auto", backend: str = "cuda") -> StepPlan:
+    """Resolve one ring step's dispatch, as the JAX package's ``bpmf_gram_step`` does.
+
+    ``"auto"``: an entry for the step's ``autotune.step_key`` pins the
+    whole step; without one the heuristic decides fused or not, and when
+    not, each bucket takes the decision for its own ``bucket_key``.
+    ``"pallas_fused"``: the fused kernel at ``FUSED_PC``; ``"pallas"`` and
+    ``"xla"``: that op for every bucket. A fused plan builds its layout on
+    the buckets' device.
+
+    Raises:
+        ValueError: An unknown ``gram_impl``, or K above the kernels' limit
+            on a CUDA key.
+    """
+    if gram_impl not in GRAM_IMPLS:
+        raise ValueError(f"unknown gram_impl {gram_impl!r}; one of {'|'.join(GRAM_IMPLS)}")
+    shapes = [(b.B, b.P) for b in buckets]
+    if gram_impl == "auto":
+        skey = autotune.step_key(shapes, Ns, K, cap, compute_dtype, backend)
+        dec = autotune.get_cache().lookup(skey)
+        if dec is None:
+            dec = autotune.heuristic(skey)
+            if dec.impl != "pallas_fused":
+                return StepPlan(dec, buckets=tuple(
+                    autotune.decide(autotune.bucket_key(B, P, Ns, K, compute_dtype, backend))
+                    for B, P in shapes))
+    elif gram_impl == "pallas_fused":
+        dec = Decision("pallas_fused", pc=FUSED_PC)
+    else:
+        dec = Decision(gram_impl)
+    return StepPlan.for_decision(dec, buckets)
+
+
 def bpmf_gram_step(
     G: torch.Tensor,
     g: torch.Tensor,
@@ -151,17 +223,18 @@ def bpmf_gram_step(
     alpha: float,
     compute_dtype: torch.dtype = torch.float32,
     gram_impl: str = "auto",
-    layout: FusedStep | None = None,
+    plan: StepPlan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Add one ring step's bucket contributions into ``(G, g)``, in place.
 
-    The distributed half-sweeps call this once per ring step and shard.
-    ``"auto"`` and ``"pallas_fused"`` launch the fused kernel once over the
-    step's layout (``layout``, or one flattened here);
-    ``"pallas"`` and ``"xla"`` run :func:`bpmf_gram` per bucket and add
-    ``alpha * (G_b, g_b)`` into the bucket's rows. A bucket's rows are
-    distinct, so each add touches a row once and the sums do not depend on
-    the device; padding rows (``item_ids == -1``) add exact zeros.
+    The distributed half-sweeps call this once per ring step and shard,
+    with the ``plan`` made when the data was placed; without one the step
+    is planned here from ``gram_impl`` (:func:`plan_step`). A fused plan
+    launches the fused kernel once over its layout; otherwise each bucket
+    runs :func:`bpmf_gram` with its decision and ``alpha * (G_b, g_b)`` is
+    added into the bucket's rows. A bucket's rows are distinct, so each add
+    touches a row once and the sums do not depend on the device; padding
+    rows (``item_ids == -1``) add exact zeros.
 
     Args:
         G: ``[cap, K, K]`` float32 running Gram sums.
@@ -170,8 +243,9 @@ def bpmf_gram_step(
         buckets: The step's ``Bucket`` tuple.
         alpha: Rating noise precision (scales both terms).
         compute_dtype: Gram input rounding (float32 or bfloat16).
-        gram_impl: ``"auto" | "pallas_fused" | "pallas" | "xla"``.
-        layout: The step's prebuilt :class:`FusedStep`.
+        gram_impl: ``"auto" | "pallas_fused" | "pallas" | "xla"``, used
+            when no ``plan`` is given.
+        plan: The step's prebuilt :class:`StepPlan`.
 
     Returns:
         ``(G, g)``, the same tensors, updated.
@@ -183,18 +257,37 @@ def bpmf_gram_step(
         raise ValueError(f"unknown gram_impl {gram_impl!r}; one of {'|'.join(GRAM_IMPLS)}")
     if not buckets:
         return G, g
-    if gram_impl in ("auto", "pallas_fused"):
-        if layout is None:
-            layout = fused_step(buckets)
+    if plan is None:
+        Ns, K = X_src.shape
+        plan = plan_step(buckets, Ns, K, G.shape[0], compute_dtype=compute_dtype, gram_impl=gram_impl,
+                         backend=X_src.device.type)
+    if plan.fused:
+        layout = plan.layout
         return gram_kernel.bpmf_gram_fused(
             G, g, X_src, layout.nbr, layout.val, layout.item, layout.cnt,
             alpha, compute_dtype, layout.order,
         )
     a = float(alpha)  # a float32 multiplier: the same product as a float32 tensor's, no host copy
-    for b in buckets:
-        Gb, gb = bpmf_gram(X_src, b.nbr, b.val, b.nnz, compute_dtype=compute_dtype, impl=gram_impl)
+    for b, dec in zip(buckets, plan.buckets, strict=True):
+        Gb, gb = bpmf_gram(X_src, b.nbr, b.val, b.nnz, compute_dtype=compute_dtype, impl=dec.impl,
+                           piece=dec.piece)
         live = (b.item_ids >= 0).to(torch.float32)
         rows = b.item_ids.clamp_min(0).long()
-        G.index_add_(0, rows, (a * Gb) * live[:, None, None])
-        g.index_add_(0, rows, (a * gb) * live[:, None])
+        _add_rows(G, rows, (a * Gb) * live[:, None, None])
+        _add_rows(g, rows, (a * gb) * live[:, None])
     return G, g
+
+
+def _add_rows(dst: torch.Tensor, rows: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst[rows[i]] += src[i]`` in place, for distinct rows (padding rows add exact zeros to row 0).
+
+    One float add per entry either way, so the bits do not depend on the
+    route. On the CPU ``index_add_`` issues one small add per row, each a
+    parallel region (milliseconds per bucket beside other busy processes),
+    so the CPU takes the one-pass accumulating ``index_put_``; the card
+    keeps ``index_add_``.
+    """
+    if dst.device.type == "cpu":
+        dst.index_put_((rows,), src, accumulate=True)
+    else:
+        dst.index_add_(0, rows, src)

@@ -38,6 +38,14 @@ copies that the next block leaves alone; and an eager block runs under
 
 The item-sharded top-k on the card (1, 3 and 4 item shards, a tie across
 shards) returns the replicated scan's ids and scores bit for bit.
+
+The autotuner on the card: every candidate ``measure_step`` times (the
+fused kernel at each chunk width, the per-bucket kernel at each piece
+width) is admitted, and each lies within the band of the plain version;
+a ring warmed to one decision for every step (per-bucket, or fused at
+``pc`` 64 or 256) plans it, each step against the plain version, the
+captured block equal to the eager one with the plans' launches, and the
+legacy ``Backend.sweep`` leaves the graph's buffers alone.
 """
 import threading
 
@@ -464,3 +472,76 @@ def test_sharded_top_k_on_card_equals_the_replicated_scan(cuda, shards):
     for k in (1, 10, 400):
         got, want = p.top_k(np.arange(users), k), p.top_k(np.arange(users), k, sharded=False)
         assert got[0].tobytes() == want[0].tobytes() and got[1].tobytes() == want[1].tobytes()
+
+
+# ---------- the autotuner on the card ----------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes,Ns,K", [([(48, 64), (16, 32)], 128, 32), ([(8, 4096), (24, 128)], 512, 32),
+                                         ([(128, 8)], 128, 16)])
+def test_every_measure_step_candidate_matches_the_plain_version(cuda, tmp_path, shapes, Ns, K):
+    from repro_torch.kernels import autotune
+
+    cache = autotune.AutotuneCache(str(tmp_path / "gram_cuda.json"))
+    best, timings = autotune.measure_step(shapes, Ns, K, iters=3, cache=cache, device=cuda)
+    assert set(timings) == set(autotune.candidates("cuda"))  # none left out, and no "xla" on the card
+    entry = next(iter(cache.entries().values()))
+    assert "rejected" not in entry and entry["card"] != "cuda" and best.impl in ("pallas_fused", "pallas")
+    cap = -(-sum(b for b, _ in shapes) // 8) * 8
+    X, buckets = autotune.synthetic_step(shapes, Ns, K, cap, cuda)
+    zeros = lambda: (torch.zeros(cap, K, K, device=cuda), torch.zeros(cap, K, device=cuda))  # noqa: E731
+    want = gram_kernel.bpmf_gram_fused_plain(*zeros(), X, *ops.flatten_step(buckets, 128, 8), 2.0)
+    for label, dec in autotune.candidates("cuda").items():
+        got = ops.bpmf_gram_step(*zeros(), X, buckets, alpha=2.0, plan=ops.StepPlan.for_decision(dec, buckets))
+        assert autotune.step_band(*got, *want, buckets, 2.0) <= 1.0, label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [("pallas", None, 256), ("pallas_fused", 64, None), ("pallas_fused", 256, None)])
+def test_a_warmed_ring_runs_its_decisions_captured_as_eager(cuda, tmp_path, warm):
+    from repro_torch.kernels import autotune
+
+    cache = autotune.AutotuneCache(str(tmp_path / "gram_cuda.json"))
+    cfg, coo = _checkpointed_run("ring", None)
+    cfg = cfg.replace(checkpoint_every=0)
+    cold = BPMFEngine(cfg)
+    cold.prepare(coo)
+    for key, _ in autotune.workload_step_keys(cold.backend.data, cfg.model.K):
+        cache.record(key, autotune.Decision(*warm))
+    autotune.set_cache(cache)
+    try:
+        engine = BPMFEngine(cfg)
+        engine.prepare(coo)
+    finally:
+        autotune.set_cache(None)
+    b = engine.backend
+    plans = b.data.step_plans()
+    assert plans and all(p.decision == autotune.Decision(*warm) for *_, p in plans)
+    # every warmed step against its plain version, from zero sums
+    state = b.init_state(engine._k_init)
+    for side, t, i, plan in plans:
+        S = b.num_shards
+        X = (state.V if side == "users" else state.U)[(i - t) % S]
+        cap, K = getattr(b.data, side).cap, cfg.model.K
+        buckets = getattr(b.data, side).steps[t][i]
+        got = ops.bpmf_gram_step(torch.zeros(cap, K, K, device=cuda), torch.zeros(cap, K, device=cuda), X,
+                                 buckets, alpha=2.0, plan=plan)
+        want = gram_kernel.bpmf_gram_fused_plain(torch.zeros(cap, K, K, device=cuda),
+                                                 torch.zeros(cap, K, device=cuda), X,
+                                                 *ops.flatten_step(buckets, 128, 8), 2.0)
+        assert autotune.step_band(*got, *want, buckets, 2.0) <= 1.0, (side, t, i)
+    before = sweep_graph.launch_counts()
+    eager = b.sweep_block(engine._k_run, *_fresh_carry(engine), 3, _eager=True)
+    eager_counts = {k: v - before[k] for k, v in sweep_graph.launch_counts().items()}
+    captured = b.sweep_block(engine._k_run, *_fresh_carry(engine), 3)
+    _assert_same_bits(captured, eager)
+    assert {k: 3 * v for k, v in b.graph.launches_per_replay.items()} == eager_counts
+    fused = warm[0] == "pallas_fused"
+    assert (eager_counts["FUSED_LAUNCHES"] > 0) == fused and (eager_counts["LAUNCHES"] > 0) != fused
+    # the legacy per-sweep dispatch leaves the graph and its buffers alone
+    kept = sweep_graph.map_tensors(captured[:3], torch.clone)
+    _, _, m = b.sweep(engine._k_run, captured[0], captured[1])
+    assert m.sweep == 4.0
+    _assert_same_bits(captured[:3], kept)
+    assert b.graph.replays == 3

@@ -158,7 +158,8 @@ def test_fused_step_matches_jax_kernel(name):
         np.testing.assert_allclose(Gt.numpy(), np.asarray(Gj), rtol=tol, atol=tol)
         np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=tol, atol=tol)
         outs[impl] = (Gt, gt)
-    assert torch.equal(outs["auto"][0], outs["pallas_fused"][0])
+    # on the CPU "auto" is the JAX package's CPU dispatch: the plain version per bucket
+    assert torch.equal(outs["auto"][0], outs["xla"][0]) and torch.equal(outs["auto"][1], outs["xla"][1])
     # rows that no live chunk reaches keep their bits
     items = np.concatenate([a[0][a[3] > 0] for a in arrays])
     untouched = np.setdiff1d(np.arange(G.shape[0]), items)
@@ -236,7 +237,7 @@ def test_comm_modes_match_port_sequential(S, name, depth):
 
 @pytest.mark.parametrize("gram_impl", ["pallas", "xla"])
 def test_ring_per_bucket_gram_impls_match_fused(gram_impl):
-    fused, e = _run("ring", 2), _run("ring", 2, gram_impl=gram_impl)
+    fused, e = _run("ring", 2, gram_impl="pallas_fused"), _run("ring", 2, gram_impl=gram_impl)
     assert not e.backend.data.users.fused  # the fused layouts are built only for the fused kernel
     for got, want in zip(e.factors(), fused.factors()):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
@@ -252,7 +253,7 @@ def test_run_distributed_draws_the_engine_ring_samples():
 
 
 def test_ring_engine_posterior_and_predictor():
-    seq, e = _run(), _run("ring", 4)
+    seq, e = _run(), _run("ring", 4, gram_impl="pallas_fused")
     meta, arrays = e._artifact_payload()
     meta_s, arrays_s = seq._artifact_payload()
     assert (meta.num_mean_samples, meta.num_kept_samples, meta.backend) == (3, 3, "ring")
