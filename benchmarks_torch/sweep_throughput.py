@@ -34,27 +34,14 @@ import time
 import numpy as np
 import torch
 
-from benchmarks_torch.common import device_record, save_result, smoke_out_path
+from benchmarks_torch.common import capture_seconds, device_record, fit_timed, save_result, smoke_out_path, \
+    warm_up
 from repro_torch.bpmf import BPMFConfig, BPMFEngine, load_dataset
 from repro_torch.utils import resolve_device
 
 BLOCK_SIZES = (1, 4, 8)
 BACKENDS = ("sequential", "ring", "ring_async", "allgather")
 NUM_SHARDS = 4  # the ring's shards, all on the one device (chip_smoke.py's S)
-
-
-def _capture_seconds(engine: BPMFEngine) -> float:
-    graph = engine.backend.graph
-    return 0.0 if graph is None else graph.warmup_seconds + graph.capture_seconds
-
-
-def _fit_timed(cfg: BPMFConfig, coo, device) -> tuple[BPMFEngine, float]:
-    """(engine, seconds) of one fit after ``prepare``, the graph's capture taken off."""
-    engine = BPMFEngine(cfg, device=device)
-    engine.prepare(coo)
-    t0 = time.perf_counter()
-    engine.fit()
-    return engine, time.perf_counter() - t0 - _capture_seconds(engine)
 
 
 def _legacy_emulated(cfg: BPMFConfig, coo, device) -> tuple[BPMFEngine, float, int]:
@@ -68,7 +55,7 @@ def _legacy_emulated(cfg: BPMFConfig, coo, device) -> tuple[BPMFEngine, float, i
         if int(m.sweep) > cfg.run.burn_in:
             U, V = engine.factors()
             gathered += U.nbytes + V.nbytes
-    seconds = time.perf_counter() - t0 - _capture_seconds(engine)
+    seconds = time.perf_counter() - t0 - capture_seconds(engine)
     return engine, seconds, gathered + engine.host_metric_bytes
 
 
@@ -103,7 +90,7 @@ def run(smoke: bool = False, out_path: str | None = None, device: str | torch.de
     coo = load_dataset("synthetic", num_users=users, num_movies=movies, nnz=nnz)
     base = BPMFConfig().replace(K=K, num_sweeps=sweeps, burn_in=burn_in, keep_factor_samples=4,
                                 num_shards=NUM_SHARDS)
-    BPMFEngine(base.replace(num_sweeps=1), device=device).fit(coo)  # builds the kernels and library handles
+    warm_up(base, coo, device)
 
     out: dict = {
         **device_record(device),
@@ -119,14 +106,14 @@ def run(smoke: bool = False, out_path: str | None = None, device: str | torch.de
         entries: dict = {}
         factors0 = None
         for spb in BLOCK_SIZES:
-            engine, t = _fit_timed(base.replace(name=name, sweeps_per_block=spb), coo, device)
+            engine, t = fit_timed(base.replace(name=name, sweeps_per_block=spb), coo, device)
             U, V = engine.factors()
             if factors0 is None:
                 factors0 = (U, V)
             parity = parity and np.array_equal(U, factors0[0]) and np.array_equal(V, factors0[1])
             entries[f"block_{spb}"] = {
                 "sweeps_per_block": spb, "seconds": t, "sweeps_per_sec": sweeps / t,
-                "capture_seconds": _capture_seconds(engine),
+                "capture_seconds": capture_seconds(engine),
                 "host_bytes_per_sweep": engine.host_metric_bytes / sweeps, "rmse": engine.rmse,
             }
             print(f"[sweep_throughput] {name} block={spb}: {t:.4f}s ({sweeps / t:.2f} sweeps/s, "
@@ -144,8 +131,8 @@ def run(smoke: bool = False, out_path: str | None = None, device: str | torch.de
         spb_ov = 4  # several blocks in flight
         nblocks = -(-sweeps // spb_ov)
         for label, depth in (("overlap_off", 1), ("overlap_on", 2)):
-            engine, t = _fit_timed(base.replace(name=name, sweeps_per_block=spb_ov, pipeline_blocks=depth),
-                                   coo, device)
+            engine, t = fit_timed(base.replace(name=name, sweeps_per_block=spb_ov, pipeline_blocks=depth),
+                                  coo, device)
             U, V = engine.factors()
             parity = parity and np.array_equal(U, factors0[0]) and np.array_equal(V, factors0[1])
             entries[label] = {

@@ -116,9 +116,19 @@ Phases (any failure stops the run with a non-zero exit and no result line):
    a ring whose cache puts every step on the per-bucket kernel (at the
    piece width measured fastest), held to its plans' launches, to the
    sequential RMSE and to its own eager sweeps bit for bit;
-13. ``bench_drivers``: ``benchmarks_torch``'s three benchmarks once each at
-   their smoke size, into a temporary directory, each JSON through
-   ``scripts/check_bench_schema_torch.py``;
+13. ``bench_drivers``: every one of ``benchmarks_torch``'s drivers once at
+   its smoke size (fig2, sweep_throughput, rmse_convergence, fig3,
+   fig4 with its process sweep at 1 and 2 processes sharing the card,
+   fig5, fig_merge_comm, serve_latency and its ``--load`` mode), into a
+   temporary directory, each JSON through
+   ``scripts/check_bench_schema_torch.py`` (the gate a committed file
+   passes, less the committed-file rules), with the Gram launch counters
+   reset just before each driver and read just after, and its headline
+   (fig3's speedup, fig4's metered against modelled ring bytes, fig5's
+   ``ring_async_bitwise``, fig_merge_comm's acceptance triple, serve_load's
+   p99 and errors per client count); then ``examples``: the three
+   ``examples_torch`` scripts at their own sizes on the card, each ending
+   with its own checks passed, with their launch counts;
 14. the ``kernels`` JSON line, the card line again, and last the ``ok`` line.
 
 Tolerance of a kernel against its plain version: the plain version
@@ -1742,7 +1752,58 @@ def phase_sharded_topk(torch, np, engine, card: str, device: str = "cuda") -> No
 
 
 AUTOTUNE_ITERS = 10  # timed replays of each candidate of an ML20M ring step
-BENCHMARKS = ("fig2_item_update", "sweep_throughput", "rmse_convergence")
+# benchmarks_torch's drivers: name -> (module, keyword arguments of its run())
+BENCHMARKS = {
+    "fig2_item_update": ("fig2_item_update", {}),
+    "sweep_throughput": ("sweep_throughput", {}),
+    "rmse_convergence": ("rmse_convergence", {}),
+    "fig3_multicore": ("fig3_multicore", {}),
+    "fig4_scaling": ("fig4_scaling", {"processes": (1, MP_PROCESSES), "timeout": 240}),
+    "fig5_overlap": ("fig5_overlap", {}),
+    "fig_merge_comm": ("fig_merge_comm", {}),
+    "serve_latency": ("serve_latency", {}),
+    "serve_load": ("serve_latency", {"load": True}),
+}
+EXAMPLES = ("quickstart", "distributed_bpmf", "bpmf_chembl")
+
+
+def bench_headline(name: str, payload: dict) -> dict:
+    """The numbers a driver's ``bench_drivers`` line shows."""
+    if name == "fig2_item_update":
+        return {"cost_model": payload["cost_model"],
+                "winners": {k: [v["winner"], v["pc"], v["piece"], v["timings_us"]]
+                            for k, v in payload["kernel_sweep"].items()}}
+    if name == "sweep_throughput":
+        return {**{k: payload[k] for k in ("parity_ok", "block_transfer_drop_ok", "save_return_latency")},
+                "sweeps_per_sec": {n: {k: e[k]["sweeps_per_sec"] for k in e} for n, e in payload["backends"].items()}}
+    if name == "rmse_convergence":
+        return {k: payload[k] for k in ("final_rmse", "max_trajectory_gap", "parity_ok")}
+    if name == "fig3_multicore":
+        r = payload["results"]
+        return {"speedup_bucketed_vs_maxpad": r["speedup_bucketed_vs_maxpad"],
+                "eager_speedup_bucketed_vs_maxpad": r["eager_speedup_bucketed_vs_maxpad"],
+                "ms_per_halfsweep": {m: r[m]["seconds_per_halfsweep"] * 1e3 for m in r if isinstance(r[m], dict)}}
+    if name == "fig4_scaling":
+        ps = payload["process_sweep"]
+        rb = ps["ring_bytes_per_sweep"]
+        return {"model_matches": rb["model_matches"], "measured_bytes": rb["measured"],
+                "modelled_bytes": rb["modelled"],
+                "layouts": [{k: r[k] for k in ("processes", "sweeps_per_s", "cross_process_bytes_per_sweep",
+                                               "cross_process_rotation_bytes_per_sweep",
+                                               "modelled_cross_process_bytes_per_sweep")} for r in ps["layouts"]],
+                "updates_per_s": {m: [r["updates_per_s"] for r in rows] for m, rows in payload["modes"].items()}}
+    if name == "fig5_overlap":
+        return {k: payload[k] for k in ("ring_async_bitwise", "parity_ok", "speedup_vs_allgather",
+                                        "eager_speedup_vs_allgather", "cards")}
+    if name == "fig_merge_comm":
+        return {**{k: payload[k] for k in ("beats_baseline", "within_band", "zero_comm_ok")},
+                "collective_ops": {n: e["collective_ops"] for n, e in payload["backends"].items()}}
+    if name == "serve_latency":
+        return {"p50_ms": {b: e["p50_ms"] for b, e in payload["batches"].items()},
+                "top_k_p99_ms": payload["top_k"]["p99_ms"]}
+    return {"top_k_p99_ms": {m: payload["top_k"][m]["p99_ms"] for m in ("replicated", "sharded")},
+            "load": {c: {"p99_ms": e["p99_ms"], "errors": e["errors"], "offered_qps": e["offered_qps"]}
+                     for c, e in payload["load"].items()}}
 
 
 def sequential_keys(autotune, engine) -> list:
@@ -1950,11 +2011,18 @@ def phase_autotune_ring(torch, np, gram_kernel, autotune, ops, BPMFEngine, dist,
             "per_bucket_launches": per_bucket["counts"]}
 
 
-def phase_bench_drivers(torch, tmp: Path, card: str) -> None:
-    """``bench_drivers``: each of ``benchmarks_torch``'s benchmarks once on the card at its smoke size.
+def reset_counters(gram_kernel) -> None:
+    for name in COUNTERS:
+        setattr(gram_kernel, name, 0)
 
-    Each writes into ``tmp`` (never the committed files) and its JSON must
-    pass ``scripts/check_bench_schema_torch.py``; prints the headline numbers.
+
+def phase_bench_drivers(torch, gram_kernel, tmp: Path, card: str) -> dict:
+    """``bench_drivers``: each of ``benchmarks_torch``'s drivers once on the card at its smoke size.
+
+    Each writes into ``tmp`` (never the committed files), its JSON must
+    pass ``scripts/check_bench_schema_torch.py``, and its Gram launches
+    are counted (the counters reset just before it and read just after);
+    prints the headline numbers and returns the counts by driver.
     """
     import importlib
     import importlib.util
@@ -1964,25 +2032,52 @@ def phase_bench_drivers(torch, tmp: Path, card: str) -> None:
                                                   ROOT / "scripts" / "check_bench_schema_torch.py")
     schema = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(schema)
-    for name in BENCHMARKS:
-        bench = importlib.import_module(f"benchmarks_torch.{name}")
+    launches = {}
+    for name, (module, kwargs) in BENCHMARKS.items():
+        bench = importlib.import_module(f"benchmarks_torch.{module}")
+        reset_counters(gram_kernel)
         t0 = time.perf_counter()
-        payload = bench.run(smoke=True, out_path=str(tmp / f"{name}.json"), device="cuda")
+        payload = bench.run(smoke=True, out_path=str(tmp / f"{name}.json"), device="cuda", **kwargs)
+        launches[name] = {n: getattr(gram_kernel, n) for n in COUNTERS}
         line = {"phase": "bench_drivers", "benchmark": name, "card": card, "seconds": time.perf_counter() - t0,
-                "schema_violations": schema.check(name, payload, committed=False)}
-        if name == "fig2_item_update":
-            line.update(cost_model=payload["cost_model"],
-                        winners={k: [v["winner"], v["pc"], v["piece"], v["timings_us"]]
-                                 for k, v in payload["kernel_sweep"].items()})
-        elif name == "sweep_throughput":
-            line.update({k: payload[k] for k in ("parity_ok", "block_transfer_drop_ok", "save_return_latency")},
-                        sweeps_per_sec={n: {k: e[k]["sweeps_per_sec"] for k in e}
-                                        for n, e in payload["backends"].items()})
-        else:
-            line.update({k: payload[k] for k in ("final_rmse", "max_trajectory_gap", "parity_ok")})
+                "schema_violations": schema.check(name, payload, committed=False), "launches": launches[name],
+                **bench_headline(name, payload)}
         print(json.dumps(line), flush=True)
         if line["schema_violations"]:
             raise AssertionError(f"{name}: {line['schema_violations']}")
+        # fig2's measure_step holds every candidate to the plain version; no other driver calls it
+        if name != "fig2_item_update" and (launches[name]["PLAIN_CALLS"] or launches[name]["FUSED_PLAIN_CALLS"]):
+            raise AssertionError(f"{name}: the plain Gram version ran on the card: {launches[name]}")
+    return launches
+
+
+def phase_examples(gram_kernel, tmp: Path, card: str) -> dict:
+    """``examples``: each ``examples_torch`` script at its own size on the card; its self-checks must pass."""
+    import contextlib
+    import importlib.util
+    import io
+
+    launches = {}
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        argv = ["--device", "cuda"] + (["--checkpoint-dir", str(tmp / name)] if name == "bpmf_chembl" else [])
+        reset_counters(gram_kernel)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            module.main(argv)
+        seconds = time.perf_counter() - t0
+        launches[name] = {n: getattr(gram_kernel, n) for n in COUNTERS}
+        lines = out.getvalue().splitlines()
+        print(json.dumps({"phase": "examples", "example": name, "card": card, "seconds": seconds,
+                          "launches": launches[name], "last_lines": lines[-3:]}), flush=True)
+        if not lines or not lines[-1].startswith("ok"):
+            raise AssertionError(f"{name} did not end with ok: {lines[-5:]}")
+        if not (launches[name]["LAUNCHES"] or launches[name]["FUSED_LAUNCHES"]):
+            raise AssertionError(f"{name} launched no Gram kernel: {launches[name]}")
+    return launches
 
 
 def timed(fn) -> float:
@@ -2103,9 +2198,12 @@ def run_all(np, torch) -> int:
 
     t_bench = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke-bench-") as bench_tmp:
-        phase_bench_drivers(torch, Path(bench_tmp), card)
+        bench = phase_bench_drivers(torch, gram_kernel, Path(bench_tmp), card)
+        t_examples = time.perf_counter()
+        examples = phase_examples(gram_kernel, Path(bench_tmp), card)
     print(json.dumps({"phase": "autotune_wall_seconds", "autotune_ring": tuned_s,
-                      "bench_drivers": time.perf_counter() - t_bench}), flush=True)
+                      "bench_drivers": t_examples - t_bench,
+                      "examples": time.perf_counter() - t_examples}), flush=True)
 
     phase_yardsticks(ml["gram"], fused)
     gram = ml["gram"]
@@ -2128,6 +2226,8 @@ def run_all(np, torch) -> int:
         "multiproc_merge_launches_per_rank": mp["merge_launches"],
         "autotune_ring_launches": tuned["launches"]["LAUNCHES"],
         "autotune_ring_per_bucket_launches": tuned["per_bucket_launches"]["LAUNCHES"],
+        "bench_driver_launches": {n: c["LAUNCHES"] for n, c in bench.items()},
+        "example_launches": {n: c["LAUNCHES"] for n, c in examples.items()},
         "note": f"launches: the 4 replays of the captured sweep and the capture's eager warm-up sweep; "
                 f"ms, plain_ms, bound_ms and library_ms cover the {gram['launches']} launches of one "
                 "ML20M sweep (and their second passes); ms times single calls, device_ms runs of "
@@ -2151,6 +2251,8 @@ def run_all(np, torch) -> int:
         "multiproc_ring_launches_per_rank": mp["ring_launches"],
         "autotune_ring_launches": tuned["launches"]["FUSED_LAUNCHES"],
         "autotune_ring_steps_by_decision": tuned["steps_by_decision"],
+        "bench_driver_launches": {n: c["FUSED_LAUNCHES"] for n, c in bench.items()},
+        "example_launches": {n: c["FUSED_LAUNCHES"] for n, c in examples.items()},
         "note": f"launches: the 4 replays of the captured sweep and the capture's eager warm-up sweep; "
                 f"ms, plain_ms, bound_ms and library_ms cover the {fused['launches']} launches of one "
                 f"ML20M sweep of the {RING_SHARDS}-shard ring (and their second passes), from zero sums; "

@@ -329,7 +329,10 @@ class Ring:
     ``host_bytes`` and ``host_seconds`` count what crossed processes
     through host memory under ``gloo``: the bytes copied to and from the
     card, and the host's wall time in those copies and in the waits for
-    ``gloo`` (reset them to measure a window).
+    ``gloo`` (reset them to measure a window). ``rotation_bytes_sent``
+    and ``gather_bytes_sent`` count the bytes this process sent to other
+    processes, by hand-overs of :meth:`rotate` and by :meth:`all_gather`
+    (its block once to each other rank), on any device.
     """
 
     def __init__(self, devices: Sequence[torch.device | str], num_shards: int | None = None,
@@ -354,6 +357,8 @@ class Ring:
         self._tag = 0
         self.host_bytes = 0
         self.host_seconds = 0.0
+        self.rotation_bytes_sent = 0
+        self.gather_bytes_sent = 0
 
     @property
     def spans_processes(self) -> bool:
@@ -452,6 +457,7 @@ class Ring:
             return [x]
         t0 = time.perf_counter()
         out = all_gather_blocks(x)
+        self.gather_bytes_sent += x.nbytes * (self.num_processes - 1)
         if _stages_through_host(x.device):
             self.host_bytes += x.nbytes * (1 + self.num_processes)
         self.host_seconds += time.perf_counter() - t0
@@ -494,6 +500,7 @@ class Ring:
         else:
             send = self.take(buf)
             recv = torch.empty_like(send)
+        self.rotation_bytes_sent += send.nbytes
         works = torch.distributed.batch_isend_irecv([
             torch.distributed.P2POp(torch.distributed.isend, send, nxt, tag=self._tag),
             torch.distributed.P2POp(torch.distributed.irecv, recv, prv, tag=self._tag),

@@ -31,7 +31,10 @@ Multi-process: ``--coordinator host:port --num-processes N --process-id i``
 repro_torch.launch.multiproc`` sets) joins this process to a job of N
 (:mod:`repro_torch.launch.hostdevices`); the ring backends then split their
 ``--num-shards`` over the N processes, and ``posterior_merge`` its chains.
-Only process 0 prints and writes the artifact. ``--inject-failure SWEEP``
+Only process 0 prints and writes the artifact, except that every process of
+a ring spread over processes ends with one ``ring traffic:`` line: the bytes
+its ring sent to the other processes (rotation and gathers) and staged
+through the host. ``--inject-failure SWEEP``
 kills the job's last process after that sweep (not under ``--resume``), so
 a launcher's elastic restart can be tried end to end.
 """
@@ -194,6 +197,12 @@ def main(argv: list[str] | None = None) -> int:
         f"final rmse(avg)={engine.rmse:.4f} after {engine.num_sweeps_done} sweeps "
         f"({swept} this run) in {dt:.2f}s ({updates / max(dt, 1e-9):,.0f} item updates/s)"
     )
+    ring = getattr(engine.backend, "ring", None)
+    if ring is not None and ring.spans_processes:  # every rank: what its ring sent to the others
+        print(f"ring traffic: process {process_index()} of {process_count()} sent "
+              f"{ring.rotation_bytes_sent} rotation bytes and {ring.gather_bytes_sent} gather bytes "
+              f"to other processes, staged {ring.host_bytes} bytes through the host, in {swept} sweeps",
+              flush=True)
     if args.export_artifact:
         path = engine.export(args.export_artifact)  # a collective in a multi-process job
         say(f"exported serving artifact to {path}")

@@ -46,6 +46,10 @@ a ring warmed to one decision for every step (per-bucket, or fused at
 ``pc`` 64 or 256) plans it, each step against the plain version, the
 captured block equal to the eager one with the plans' launches, and the
 legacy ``Backend.sweep`` leaves the graph's buffers alone.
+
+The fig5 driver at its smoke size on the card: ``ring_async`` at depths
+1, 2 and 4 gives the ring's factors bit for bit, the modes agree in RMSE,
+and the ring steps launch the fused kernel.
 """
 import threading
 
@@ -545,3 +549,18 @@ def test_a_warmed_ring_runs_its_decisions_captured_as_eager(cuda, tmp_path, warm
     assert m.sweep == 4.0
     _assert_same_bits(captured[:3], kept)
     assert b.graph.replays == 3
+
+
+@pytest.mark.cuda
+def test_fig5_smoke_on_the_card_keeps_ring_async_bit_for_bit(cuda, tmp_path):
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from benchmarks_torch import fig5_overlap
+
+    before = gram_kernel.FUSED_LAUNCHES
+    payload = fig5_overlap.run(smoke=True, out_path=str(tmp_path / "fig5_overlap.json"), device="cuda")
+    assert payload["device"] == "gpu" and payload["cards"] == 1
+    assert payload["ring_async_bitwise"] and payload["parity_ok"]
+    assert gram_kernel.FUSED_LAUNCHES > before  # the ring steps ran the fused kernel
