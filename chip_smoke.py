@@ -129,7 +129,25 @@ Phases (any failure stops the run with a non-zero exit and no result line):
    p99 and errors per client count); then ``examples``: the three
    ``examples_torch`` scripts at their own sizes on the card, each ending
    with its own checks passed, with their launch counts;
-14. the ``kernels`` JSON line, the card line again, and last the ``ok`` line.
+14. the LM scaffold (``repro_torch.models``, ``training``), with the Gram
+   counters reset just before and read just after (it must launch no Gram
+   kernel): ``lm_reduced_parity``, each reduced attention-family config
+   (gemma-2b, yi-6b, chameleon-34b, nemotron-4-340b, hubert-xlarge) in
+   f32 on the card against the port's CPU run from the same params:
+   forward logits through the dense and the flash path, one train step's
+   loss and grad norm, each within 1e-4 (TF32 stays off);
+   ``lm_gemma2b_train``, gemma-2b at full width (its 2,506,172,416
+   params, f32 params, bf16 activations, ``remat="full"``) on one
+   4,096-token sequence (train_4k with its global batch cut to 1), 8 steps
+   at lr 1e-4 on that batch: every loss finite and the last below the
+   first; step ms, tokens/s, model FLOPs per token and their share of the
+   dense bf16 peak, peak memory, and one more step traced;
+   ``lm_gemma2b_decode``, teacher-forced decode of 16 tokens after a
+   4,096-token prefill against ``forward`` (within 5e-2 of the largest
+   logit), then prefill ms, greedy decode ms per token over 32 tokens and
+   the cache's bytes. ``python3 chip_smoke.py --lm-only`` runs these
+   phases alone and prints no result line;
+15. the ``kernels`` JSON line, the card line again, and last the ``ok`` line.
 
 Tolerance of a kernel against its plain version: the plain version
 contracts in float64 (the correctly rounded sum), the kernel sums float32
@@ -645,6 +663,19 @@ def phase_requests(torch, np, engine) -> None:
                       "top_k_users": users, "top_k_ms": topk_ms}), flush=True)
 
 
+def kernel_rows(torch, prof) -> list:
+    """(device ms, launches, name) of each CUDA kernel in a profile, the longest first."""
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        rows.append((dev_us / 1e3, ev.count, ev.key))
+    return sorted(rows, reverse=True)
+
+
 def profile_sweep(torch, backend, key, carry, eager: bool) -> dict:
     """One sweep of ``carry`` under torch.profiler (CUDA activity only): kernel ms by name, launches.
 
@@ -658,15 +689,7 @@ def profile_sweep(torch, backend, key, carry, eager: bool) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         backend.sweep_block(key, *carry, 1, _eager=eager)
         torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        rows.append((dev_us / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
+    rows = kernel_rows(torch, prof)
     span_ms = time_ms(torch, lambda: backend.sweep_block(key, *carry, 1, _eager=eager), 3, warmup=0)
     return {"device_kernel_ms": sum(r[0] for r in rows), "kernel_launches": sum(r[1] for r in rows),
             "event_span_ms": span_ms,
@@ -2080,6 +2103,223 @@ def phase_examples(gram_kernel, tmp: Path, card: str) -> dict:
     return launches
 
 
+LM_ARCHS = ("gemma-2b", "yi-6b", "chameleon-34b", "nemotron-4-340b", "hubert-xlarge")  # the ported family
+LM_PARITY_TOL = 1e-4  # card against the port's CPU run, f32 activations: logits, loss, grad norm
+GEMMA_PARAMS = 2_506_172_416  # the reference's build_model(get_config("gemma-2b")).num_params()
+LM_SEQ = 4096  # train_4k's sequence; its global batch of 256 is cut to 1
+LM_STEPS = 8
+LM_LR = 1e-4  # constant: the reference's 3e-3 schedule is for the reduced configs
+DECODE_PROMPT = 4096
+DECODE_TOKENS = 32
+TEACHER_TOKENS = 16
+DECODE_BAND = 5e-2  # bf16: teacher-forced decode within 5e-2 of the largest forward logit
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
+
+
+def lm_max_err(torch, got, want, vocab: int) -> tuple[float, float]:
+    """(max |got - want|, that over max(1, max |want|)) over the real vocabulary (the padded tail is masked)."""
+    got, want = got[..., :vocab].float().cpu(), want[..., :vocab].float().cpu()
+    err = float((got - want).abs().max())
+    return err, err / max(1.0, float(want.abs().max()))
+
+
+def phase_lm_reduced_parity(torch, card: str) -> None:
+    """``lm_reduced_parity``: each reduced attention-family config, f32 activations, on the card against the CPU.
+
+    The same params (drawn once on the CPU, copied to the card) and batch:
+    forward logits through the dense path and through the flash path (small
+    chunks), then one train step's loss and grad norm, each within
+    ``LM_PARITY_TOL`` (relative to max(1, |value|)).
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.launch.train import step_generator, synthetic_lm_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import AdamW, tree_map
+    from repro_torch.training.train import TrainState, make_train_step
+
+    for arch in LM_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).reduced().replace(activation_dtype="float32")
+        line = {"phase": "lm_reduced_parity", "arch": cfg.name, "card": card}
+        batch = synthetic_lm_batch(step_generator(0, 0), cfg, 2, 64, "cpu")
+        params = build_model(cfg).init(prng.key(0), "cpu")
+        on_card = lambda tree: tree_map(lambda t: t.to("cuda"), tree)
+        for path, c in (("dense", cfg), ("flash", cfg.replace(attn_q_chunk=16, attn_kv_chunk=32))):
+            model = build_model(c)
+            with torch.no_grad():
+                want, _ = model.forward(params, batch["inputs"])
+                got, _ = model.forward(on_card(params), batch["inputs"].cuda())
+            line[f"{path}_logits_max_abs_err"], line[f"{path}_logits_rel_err"] = lm_max_err(torch, got, want,
+                                                                                           cfg.vocab_size)
+        model = build_model(cfg)
+        metrics = {}
+        for dev in ("cpu", "cuda"):
+            opt = AdamW(learning_rate=1e-3)
+            p = tree_map(lambda t: t.clone().to(dev), params)
+            state = TrainState(params=p, opt=opt.init(p), step=torch.zeros((), dtype=torch.int32, device=dev))
+            _, metrics[dev] = make_train_step(model, opt)(state, {k: v.to(dev) for k, v in batch.items()})
+        for key in ("loss", "grad_norm"):
+            want, got = float(metrics["cpu"][key]), float(metrics["cuda"][key])
+            line[key] = [want, got]
+            line[f"{key}_rel_err"] = abs(got - want) / max(1.0, abs(want))
+        line["seconds"] = time.perf_counter() - t0
+        print(json.dumps(line), flush=True)
+        errs = [v for k, v in line.items() if k.endswith("rel_err")]
+        if not all(math.isfinite(e) and e <= LM_PARITY_TOL for e in errs):
+            raise AssertionError(f"{cfg.name}: card against CPU beyond {LM_PARITY_TOL}: {line}")
+
+
+def phase_lm_gemma2b_train(torch, card: str) -> tuple:
+    """``lm_gemma2b_train``: gemma-2b at full width, f32 params, bf16 activations, ``remat="full"``.
+
+    One sequence of ``LM_SEQ`` tokens (train_4k's, global batch 256 cut to
+    1), ``LM_STEPS`` steps on that repeated batch at a constant rate of
+    ``LM_LR``: every loss finite and the last below the first. Prints the
+    step ms (median of steps 3-8), tokens/s, model FLOPs per token (6 x
+    matmul params + 12 x layers x heads x head_dim x seq for attention) and
+    their share of the card's dense bf16 peak, and peak memory; then one
+    more step under torch.profiler: device kernel ms, launches, the busy
+    share against the median step, and the longest kernels. Returns
+    (model, params) for the decode phase.
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.launch.train import step_generator, synthetic_lm_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train import TrainState, make_train_step
+
+    cfg = get_config("gemma-2b")
+    model = build_model(cfg)
+    if model.num_params() != GEMMA_PARAMS:
+        raise AssertionError(f"gemma-2b has {model.num_params()} params, the reference {GEMMA_PARAMS}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(prng.key(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    opt = AdamW(learning_rate=LM_LR)
+    state = TrainState(params=params, opt=opt.init(params), step=torch.zeros((), dtype=torch.int32, device="cuda"))
+    batch = synthetic_lm_batch(step_generator(0, 0), cfg, 1, LM_SEQ, "cuda")
+    step_fn = make_train_step(model, opt)
+    losses, seconds, gnorms = [], [], []
+    for _ in range(LM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        seconds.append(time.perf_counter() - t0)
+        gnorms.append(float(metrics["grad_norm"]))
+    step_s = statistics.median(seconds[2:])
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # one more step, traced
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+    rows = kernel_rows(torch, prof)
+    traced = {"device_kernel_ms": sum(r[0] for r in rows), "kernel_launches": sum(r[1] for r in rows),
+              "busy_share": sum(r[0] for r in rows) / (step_s * 1e3),
+              "top_kernels_ms_count": [[round(ms, 3), n, name[:90]] for ms, n, name in rows[:12]]}
+    flops_token = 6 * model.matmul_params() + 12 * cfg.num_layers * cfg.num_heads * cfg.head_dim * LM_SEQ
+    line = {"phase": "lm_gemma2b_train", "card": card, "num_params": model.num_params(),
+            "matmul_params": model.matmul_params(), "seq": LM_SEQ, "batch": 1,
+            "reduced": {"global_batch": [256, 1]}, "remat": cfg.remat, "param_dtype": cfg.param_dtype,
+            "activation_dtype": cfg.activation_dtype,
+            "flash_blocks": [-(-LM_SEQ // cfg.attn_q_chunk), -(-LM_SEQ // cfg.attn_kv_chunk)],
+            "init_s": init_s, "losses": losses, "grad_norms": gnorms, "step_seconds": seconds,
+            "step_ms": step_s * 1e3, "tokens_per_s": LM_SEQ / step_s, "model_flops_per_token": flops_token,
+            "bf16_peak_share": flops_token * LM_SEQ / step_s / PEAK_BF16_FLOPS,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "profiled_step": traced}
+    print(json.dumps(line), flush=True)
+    if not all(math.isfinite(x) for x in losses + gnorms) or not losses[-1] < losses[0]:
+        raise AssertionError(f"gemma-2b: loss not finite and falling over {LM_STEPS} steps: {losses}")
+    del state, opt, metrics
+    torch.cuda.empty_cache()
+    return model, params
+
+
+def phase_lm_gemma2b_decode(torch, model, params, card: str) -> None:
+    """``lm_gemma2b_decode``: teacher-forced decode against ``forward``, then prefill and greedy decode timed.
+
+    ``forward`` over ``DECODE_PROMPT + TEACHER_TOKENS`` tokens against a
+    prefill of the prompt and ``TEACHER_TOKENS`` one-token decode steps fed
+    the same tokens: max |Δ| over the ``TEACHER_TOKENS + 1`` positions at
+    most ``DECODE_BAND`` x max |logits| (bf16). Then a prefill of the prompt
+    (ms) and ``DECODE_TOKENS`` greedy tokens (ms per token), each ended by a
+    synchronize, and the cache's bytes.
+    """
+    from repro_torch.training.lm_serve import make_decode_step, make_prefill_step
+    from repro_torch.utils import tree_size_bytes
+
+    cfg = model.cfg
+    P, T = DECODE_PROMPT, TEACHER_TOKENS
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, P + T), generator=gen).to(torch.int32).cuda()
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        hidden, _ = model.hidden(params, tokens)
+        want = model.logits(params, hidden[:, P - 1 :])  # positions P-1 .. P+T-1
+        del hidden
+        logits, cache = prefill(params, tokens[:, :P], model.init_cache(1, P + T, "cuda"))
+        got = [logits[:, -1]]
+        for t in range(T):
+            logits, cache = model.decode(params, tokens[:, P + t : P + t + 1], cache,
+                                         torch.tensor([P + t], dtype=torch.int32, device="cuda"))
+            got.append(logits[:, -1])
+        got = torch.stack(got, dim=1)
+        err = float((got - want).abs().max())
+        ratio = err / float(want.abs().max())
+        del got, want, cache
+
+        times = {}
+        for rep in range(2):  # the first pass warms up; the second is timed
+            cache = model.init_cache(1, P + DECODE_TOKENS, "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, tokens[:, :P], cache)
+            torch.cuda.synchronize()
+            times["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+            out = [tok]
+            t0 = time.perf_counter()
+            for t in range(DECODE_TOKENS - 1):
+                tok, cache = decode(params, tok, cache, torch.tensor(P + t, dtype=torch.int32, device="cuda"))
+                out.append(tok)
+            torch.cuda.synchronize()
+            times["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / (DECODE_TOKENS - 1)
+    generated = torch.cat(out, dim=1)
+    line = {"phase": "lm_gemma2b_decode", "card": card, "prompt": P, "teacher_tokens": T,
+            "teacher_max_abs_err": err, "teacher_err_over_max_logit": ratio, "band": DECODE_BAND,
+            **times, "generated_tokens": int(generated.shape[1]),
+            "cache_bytes": tree_size_bytes(cache), "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(json.dumps(line), flush=True)
+    if not math.isfinite(ratio) or ratio > DECODE_BAND:
+        raise AssertionError(f"gemma-2b: teacher-forced decode off forward by {ratio} of the largest logit")
+    if generated.shape != (1, DECODE_TOKENS) or not bool(((generated >= 0) & (generated < cfg.vocab_size)).all()):
+        raise AssertionError(f"gemma-2b: greedy decode gave {generated.shape} tokens out of range")
+
+
+def run_lm_phases(torch, gram_kernel, card: str) -> dict:
+    """The LM phases, with the Gram counters reset just before and read just after (the LM path launches none)."""
+    if gram_kernel is not None:
+        reset_counters(gram_kernel)
+    t0 = time.perf_counter()
+    phase_lm_reduced_parity(torch, card)
+    model, params = phase_lm_gemma2b_train(torch, card)
+    phase_lm_gemma2b_decode(torch, model, params, card)
+    del params
+    torch.cuda.empty_cache()
+    launches = {n: getattr(gram_kernel, n) for n in COUNTERS} if gram_kernel is not None else {}
+    print(json.dumps({"phase": "lm_wall_seconds", "card": card, "seconds": time.perf_counter() - t0,
+                      "gram_launches": launches}), flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"the LM phases launched a Gram kernel: {launches}")
+    return launches
+
+
 def timed(fn) -> float:
     """Host seconds of one call (the call returns host arrays, so the device has finished)."""
     t0 = time.perf_counter()
@@ -2117,6 +2357,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--lm-only"]:  # the LM phases alone, with no result line
+        sys.path.insert(0, str(SRC))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = card_line()
+        print(f"card: {card}", flush=True)
+        run_lm_phases(torch, None, card)
+        return 0
     # a fresh, empty autotune cache for the whole run (the child processes inherit it)
     cold_cache = Path(tempfile.mkdtemp(prefix="chip_smoke-autotune-"))
     os.environ["REPRO_TORCH_AUTOTUNE_DIR"] = str(cold_cache)
@@ -2204,6 +2451,7 @@ def run_all(np, torch) -> int:
     print(json.dumps({"phase": "autotune_wall_seconds", "autotune_ring": tuned_s,
                       "bench_drivers": t_examples - t_bench,
                       "examples": time.perf_counter() - t_examples}), flush=True)
+    lm_launches = run_lm_phases(torch, gram_kernel, card)
 
     phase_yardsticks(ml["gram"], fused)
     gram = ml["gram"]
@@ -2228,6 +2476,7 @@ def run_all(np, torch) -> int:
         "autotune_ring_per_bucket_launches": tuned["per_bucket_launches"]["LAUNCHES"],
         "bench_driver_launches": {n: c["LAUNCHES"] for n, c in bench.items()},
         "example_launches": {n: c["LAUNCHES"] for n, c in examples.items()},
+        "lm_phase_launches": lm_launches["LAUNCHES"],
         "note": f"launches: the 4 replays of the captured sweep and the capture's eager warm-up sweep; "
                 f"ms, plain_ms, bound_ms and library_ms cover the {gram['launches']} launches of one "
                 "ML20M sweep (and their second passes); ms times single calls, device_ms runs of "
@@ -2253,6 +2502,7 @@ def run_all(np, torch) -> int:
         "autotune_ring_steps_by_decision": tuned["steps_by_decision"],
         "bench_driver_launches": {n: c["FUSED_LAUNCHES"] for n, c in bench.items()},
         "example_launches": {n: c["FUSED_LAUNCHES"] for n, c in examples.items()},
+        "lm_phase_launches": lm_launches["FUSED_LAUNCHES"],
         "note": f"launches: the 4 replays of the captured sweep and the capture's eager warm-up sweep; "
                 f"ms, plain_ms, bound_ms and library_ms cover the {fused['launches']} launches of one "
                 f"ML20M sweep of the {RING_SHARDS}-shard ring (and their second passes), from zero sums; "

@@ -22,7 +22,14 @@ it only reads and writes trees:
   JAX package's ring-sharded ones: each global ``[S * n, ...]`` array is
   split into S blocks of n rows, one per shard;
 * :func:`key_from_data` / :func:`key_to_data` convert a key to and from
-  ``jax.random.key_data``'s two uint32 words.
+  ``jax.random.key_data``'s two uint32 words;
+* :func:`lm_params_from_tree` / :func:`lm_params_to_tree` carry an LM's
+  params (``repro.models.model.LMModel``'s nested dicts, leaves as
+  ``jax.tree.map(np.asarray, params)`` gives them) to this package's
+  tensors and back, with equal shapes and dtypes. numpy has no bfloat16 of
+  its own: a bfloat16 leaf is the ``ml_dtypes`` array JAX hands out, read
+  through its bits and written back as one (``ml_dtypes`` is imported only
+  then).
 """
 from __future__ import annotations
 
@@ -214,3 +221,29 @@ def dist_plan_from_tree(tree: Mapping) -> DistPlan:
         part_users=_partition(tree["part_users"]), part_movies=_partition(tree["part_movies"]),
         num_shards=int(tree["num_shards"]), strategy=str(tree["strategy"]),
     )
+
+
+def _bf16_numpy_dtype() -> np.dtype:
+    import ml_dtypes  # JAX's numpy bfloat16; needed only to hand bfloat16 leaves back
+
+    return np.dtype(ml_dtypes.bfloat16)
+
+
+def lm_params_from_tree(tree: Mapping) -> dict:
+    """An LM param tree (nested dicts of numpy arrays) as CPU tensors of the same shapes and dtypes."""
+    if not isinstance(tree, Mapping):
+        a = np.asarray(tree)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+        return _t(a)
+    return {k: lm_params_from_tree(v) for k, v in tree.items()}
+
+
+def lm_params_to_tree(params: Mapping) -> dict:
+    """This package's LM params as nested dicts of numpy arrays (bfloat16 as ``ml_dtypes.bfloat16``)."""
+    if not isinstance(params, Mapping):
+        t = params.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_bf16_numpy_dtype())
+        return t.numpy().copy()
+    return {k: lm_params_to_tree(v) for k, v in params.items()}

@@ -50,6 +50,13 @@ legacy ``Backend.sweep`` leaves the graph's buffers alone.
 The fig5 driver at its smoke size on the card: ``ring_async`` at depths
 1, 2 and 4 gives the ring's factors bit for bit, the modes agree in RMSE,
 and the ring steps launch the fused kernel.
+
+The LM scaffold's attention family on the card: each reduced config's
+forward (dense and flash paths) and one train step equal the CPU's within
+1e-4 in f32 from the same params (and the init draws agree to float32
+rounding); prefill + teacher-forced decode matches forward within 2e-3 and
+greedy generation gives the CPU's tokens; the attention's bf16 products
+with float32 output (and their gradients) match their plain CPU version.
 """
 import threading
 
@@ -58,7 +65,7 @@ import pytest
 import torch
 
 from repro_torch.bpmf import BPMFConfig, BPMFEngine, load_dataset
-from repro_torch.core import sweep_graph
+from repro_torch.core import prng, sweep_graph
 from repro_torch.core.types import Bucket
 from repro_torch.kernels import bpmf_gram as gram_kernel
 from repro_torch.kernels import ops
@@ -564,3 +571,99 @@ def test_fig5_smoke_on_the_card_keeps_ring_async_bit_for_bit(cuda, tmp_path):
     assert payload["device"] == "gpu" and payload["cards"] == 1
     assert payload["ring_async_bitwise"] and payload["parity_ok"]
     assert gram_kernel.FUSED_LAUNCHES > before  # the ring steps ran the fused kernel
+
+
+LM_FAMILY = ("gemma-2b", "yi-6b", "chameleon-34b", "nemotron-4-340b", "hubert-xlarge")
+
+
+def _lm_on(tree, device):
+    from repro_torch.training.optimizer import tree_map
+
+    return tree_map(lambda t: t.clone().to(device), tree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_FAMILY)
+def test_reduced_lm_on_the_card_matches_the_cpu(cuda, arch):
+    """Each reduced attention-family config, f32 activations: the card's forward (dense and flash paths)
+    and one train step's loss and grad norm within 1e-4 of the CPU's, from the same params and batch; the
+    init on each device agrees to float32 rounding (one bf16 step for bf16 params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import step_generator, synthetic_lm_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import AdamW, tree_leaves
+    from repro_torch.training.train import init_train_state, make_train_step
+
+    cfg = get_config(arch).reduced().replace(activation_dtype="float32")
+    batch = synthetic_lm_batch(step_generator(0, 0), cfg, 2, 48, "cpu")
+    V = cfg.vocab_size
+    for c in (cfg, cfg.replace(attn_q_chunk=16, attn_kv_chunk=32)):
+        model = build_model(c)
+        params = model.init(prng.key(0), "cpu")
+        with torch.no_grad():
+            want = model.forward(params, batch["inputs"])[0][..., :V]
+            got = model.forward(_lm_on(params, cuda), batch["inputs"].to(cuda))[0][..., :V].cpu()
+        assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+    model = build_model(cfg)
+    opt = AdamW(learning_rate=1e-3)
+    cpu_state = init_train_state(prng.key(1), model, opt, "cpu")
+    card_state = init_train_state(prng.key(1), model, opt, cuda)
+    for a, b in zip(tree_leaves(cpu_state.params), tree_leaves(card_state.params)):
+        # the same bits, made normal by each device's log1p and sqrt
+        step = 2**-7 if a.dtype == torch.bfloat16 else 1e-6
+        assert float((b.cpu().float() - a.float()).abs().max()) <= step * float(a.float().abs().max())
+    _, m_cpu = make_train_step(model, opt)(cpu_state, batch)
+    _, m_card = make_train_step(model, opt)(card_state, {k: v.to(cuda) for k, v in batch.items()})
+    for name in ("loss", "grad_norm"):
+        assert abs(float(m_card[name]) - float(m_cpu[name])) <= 1e-4 * max(1.0, abs(float(m_cpu[name])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", [a for a in LM_FAMILY if a != "hubert-xlarge"])
+def test_reduced_lm_decode_on_the_card_matches_forward(cuda, arch):
+    """Prefill + teacher-forced decode on the card against the card's forward (``tests/test_archs.py``'s
+    2e-3 band, f32), through the flash path for the cache, and greedy generation equal to the CPU's tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training.lm_serve import greedy_generate
+
+    cfg = get_config(arch).reduced().replace(activation_dtype="float32", attn_q_chunk=4, attn_kv_chunk=8)
+    model = build_model(cfg)
+    params = model.init(prng.key(2), cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 16), generator=torch.Generator().manual_seed(3)).to(torch.int32)
+    tokens = tokens.to(cuda)
+    with torch.no_grad():
+        full, _ = model.forward(params, tokens)
+        logits, cache = model.prefill(params, tokens[:, :8], model.init_cache(1, 16, cuda))
+        outs = [logits[:, -1]]
+        for t in range(8, 16):
+            pos = torch.tensor([t], dtype=torch.int32, device=cuda)
+            logits, cache = model.decode(params, tokens[:, t : t + 1], cache, pos)
+            outs.append(logits[:, -1])
+    stepwise = torch.stack(outs, dim=1)
+    np.testing.assert_allclose(stepwise[:, :-1].cpu().numpy(), full[:, 7:-1].cpu().numpy(), atol=2e-3, rtol=2e-3)
+    got = greedy_generate(model, params, tokens[:, :6], steps=4, max_len=10)
+    want = greedy_generate(model, _lm_on(params, "cpu"), tokens[:, :6].cpu(), steps=4, max_len=10)
+    assert got.cpu().tolist() == want.tolist()
+
+
+@pytest.mark.cuda
+def test_narrow_bmm_on_the_card_matches_its_plain_version(cuda):
+    """The bf16 products of attention (float32 output on the card, widened inputs on the CPU) and their
+    gradients: the card within float32 rounding of the CPU's (summation order only)."""
+    from repro_torch.models.attention import _bmm_f32
+
+    rng = np.random.default_rng(4)
+    a, b = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(torch.bfloat16)
+            for s in ((3, 64, 256), (3, 256, 96)))
+    outs = []
+    for dev in ("cpu", cuda):
+        x, y = (t.to(dev).detach().clone().requires_grad_(True) for t in (a, b))
+        out = _bmm_f32(x, y)
+        assert out.dtype == torch.float32
+        out.square().sum().backward()
+        outs.append((out.detach().cpu(), x.grad.float().cpu(), y.grad.float().cpu()))
+    (o1, ga1, gb1), (o2, ga2, gb2) = outs
+    assert float((o2 - o1).abs().max()) <= 1e-5 * float(o1.abs().max())
+    for g1, g2 in ((ga1, ga2), (gb1, gb2)):  # bf16 gradients: one bf16 step apart at most
+        assert float((g2 - g1).abs().max()) <= 2**-7 * float(g1.abs().max())
