@@ -7,8 +7,9 @@ The port's counterpart of ``examples/lm_train.py``: the same train-step
 and launcher path (``python -m repro_torch.launch.train --help`` lists all
 knobs), at batch 8 and 64 tokens, with the reference's flags plus
 ``--device``. The attention-family configs run (gemma-2b, yi-6b,
-chameleon-34b, nemotron-4-340b, hubert-xlarge); the others raise, naming the
-ROADMAP item that ports them. Exits 0 when the loss fell.
+chameleon-34b, nemotron-4-340b, hubert-xlarge), and so do mamba2-130m and
+zamba2-2.7b; the MoE and MLA configs raise, naming the ROADMAP item that
+ports them. Exits 0 when the loss fell.
 """
 import argparse
 import sys

@@ -3,14 +3,19 @@
 The counterpart of ``repro.models.model``. The same :class:`LMModel` drives
 training (``forward``, or ``hidden`` + ``logits`` for the chunked loss) and
 inference (``prefill`` / ``decode``). Params and caches are passed
-explicitly; the model holds only its config. What the reference adds for
-meshes (``specs``, ``shardings``, ``cache_specs``) waits for several cards
-(ROADMAP Queue 1 item 9); ``abstract`` gives the param tree on the ``meta``
-device, with no allocation.
+explicitly; the model holds only its config. A cache is the stack's cache
+tree: a :class:`KVCache` for the attention family, an :class:`SSMState`
+for the SSM stack, a :class:`HybridCache` for the hybrid. What the
+reference adds for meshes (``specs``, ``shardings``, ``cache_specs``,
+``cache_shardings`` and the cache axes ``_kv_axes``, ``_mla_axes``,
+``_ssm_axes``, ``_cache_axes``) waits for several cards (ROADMAP Queue 1
+item 9a); ``abstract_cache`` waits for the dry run (item 11e). ``abstract``
+gives the param tree on the ``meta`` device, with no allocation.
 
-``build_model`` builds the attention family (dense, vlm, encoder) and
-raises ``NotImplementedError`` for the configs whose layers are not ported
-yet, naming the ROADMAP item that ports them.
+``build_model`` builds the attention family (dense, vlm, encoder), the SSM
+family (mamba2-130m) and the hybrid (zamba2-2.7b), and raises
+``NotImplementedError`` for MoE and MLA configs, naming the ROADMAP item
+that ports them.
 """
 from __future__ import annotations
 
@@ -21,7 +26,6 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.models import transformer
-from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_embed, apply_lm_head, apply_norm, desc_embed, desc_lm_head, desc_norm
 from repro_torch.models.module import abstract_params, flatten_descs, init_params
@@ -121,8 +125,8 @@ class LMModel:
         x, metrics = self.hidden(params, inputs, positions)
         return self.logits(params, x), metrics
 
-    def prefill(self, params: Tree, inputs: torch.Tensor, cache: KVCache,
-                positions: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, KVCache]:
+    def prefill(self, params: Tree, inputs: torch.Tensor, cache: Tree,
+                positions: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, Tree]:
         """Fill the cache with a prompt; returns (last-position logits [B,1,V], cache')."""
         if positions is None:
             positions = torch.arange(inputs.shape[1], dtype=torch.int32, device=inputs.device)
@@ -131,8 +135,8 @@ class LMModel:
                                                   return_state=True)
         return self._head(params, x[:, -1:, :]), new_cache
 
-    def decode(self, params: Tree, tokens: torch.Tensor, cache: KVCache,
-               positions: torch.Tensor) -> tuple[torch.Tensor, KVCache]:
+    def decode(self, params: Tree, tokens: torch.Tensor, cache: Tree,
+               positions: torch.Tensor) -> tuple[torch.Tensor, Tree]:
         """One-token decode step at absolute ``positions`` [1]. Returns (logits [B,1,V], cache')."""
         x = self._embed(params, tokens)
         x, new_cache, _ = transformer.apply_stack(params["stack"], x, positions, self.cfg, caches=cache)
@@ -142,7 +146,7 @@ class LMModel:
     # Caches
     # ------------------------------------------------------------------
 
-    def init_cache(self, batch: int, max_len: int, device: str | torch.device | None = None) -> Optional[KVCache]:
+    def init_cache(self, batch: int, max_len: int, device: str | torch.device | None = None) -> Optional[Tree]:
         """Zero decode caches for ``batch`` sequences of up to ``max_len`` tokens on ``device`` (``None``: the card)."""
         return transformer.init_caches(self.cfg, batch, max_len, resolve_device(device))
 
@@ -151,8 +155,8 @@ def build_model(cfg: ModelConfig) -> LMModel:
     """The model of ``cfg``.
 
     Raises:
-        NotImplementedError: ``cfg`` is an MoE, MLA, SSM or hybrid config
-            (the message names the ROADMAP item that ports it).
+        NotImplementedError: ``cfg`` is an MoE or MLA config (the message
+            names the ROADMAP item that ports it).
     """
     why = transformer.unported(cfg)
     if why is not None:

@@ -1,10 +1,8 @@
-"""The attention-family layer stack: pre-norm attention + MLP blocks.
+"""Layer stacks: the attention family, the SSM stack and the hybrid stack.
 
-The counterpart of ``repro.models.transformer`` for the dense, vlm and
-encoder families (gemma-2b, yi-6b, chameleon-34b, nemotron-4-340b,
-hubert-xlarge). Layer weights are stacked ``[L, ...]`` as in the reference;
-the stack runs its layers in turn (the reference's ``lax.scan``), each
-under the remat policy ``cfg.remat``:
+The counterpart of ``repro.models.transformer``. Layer weights are stacked
+``[L, ...]`` as in the reference; a stack runs its layers in turn (the
+reference's ``lax.scan``), each under the remat policy ``cfg.remat``:
 
   * ``"full"``: the layer is a ``torch.utils.checkpoint`` region and saves
     only its input; the backward pass recomputes it;
@@ -13,17 +11,31 @@ under the remat policy ``cfg.remat``:
     reference's ``dots_with_no_batch_dims_saveable``) and recomputes the rest;
   * ``"none"``: no recompute.
 
-With ``cfg.remat_group = g > 1`` (and no cache) each group of g layers is
-one checkpoint region whose layers are checkpointed again inside it, so the
-group's recompute does not keep every layer's activations at once. MoE
-(ROADMAP Queue 1 item 11b), MLA (item 11c) and the SSM and hybrid stacks
-(item 11d) are not here yet: they raise ``NotImplementedError``.
+Families:
 
-Decode caches are one :class:`KVCache` whose fields carry a leading layer
-dim, as the reference's stacked cache pytrees.
+  * dense / vlm / encoder (gemma-2b, yi-6b, chameleon-34b, nemotron-4-340b,
+    hubert-xlarge): pre-norm attention + MLP blocks. With
+    ``cfg.remat_group = g > 1`` (and no cache) each group of g layers is one
+    checkpoint region whose layers are checkpointed again inside it, so the
+    group's recompute does not keep every layer's activations at once;
+  * ssm (mamba2-130m): a pre-norm mamba2 mixer per layer, no MLP;
+  * hybrid (zamba2-2.7b): the mamba2 layers in ``A = num_layers /
+    shared_attn_every`` segments, with ONE shared attention + MLP block
+    (one weight set) applied at the start of every segment, each
+    application with its own KV cache. A segment is one checkpoint region
+    whose mamba2 layers are checkpointed again, as the reference's.
+
+MoE (ROADMAP Queue 1 item 11b) and MLA (item 11c) are not here yet: they
+raise ``NotImplementedError``.
+
+Decode caches are dataclasses whose fields carry leading layer dims, as the
+reference's stacked cache pytrees: one :class:`KVCache` ``[L, ...]`` for the
+attention family, one :class:`SSMState` ``[L, ...]`` for the SSM stack, and
+a :class:`HybridCache` (``ssm`` ``[A, k, ...]``, ``attn`` ``[A, ...]``).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Callable, Optional
 
@@ -33,6 +45,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from repro_torch.models.attention import KVCache, apply_attention, desc_attention, init_kv_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_mlp, apply_norm, desc_mlp, desc_norm
+from repro_torch.models.mamba2 import SSMState, apply_mamba2, desc_mamba2, init_ssm_state
 from repro_torch.models.module import stacked
 
 Tree = Any
@@ -42,8 +55,6 @@ METRIC_NAMES = ("aux_loss", "router_z", "drop_fraction")
 
 def unported(cfg: ModelConfig) -> Optional[str]:
     """Why ``cfg`` cannot build a model here yet (the ROADMAP item that ports it), or ``None``."""
-    if cfg.family in ("ssm", "hybrid"):
-        return f"{cfg.name}: the SSM and hybrid stacks are ported with ROADMAP Queue 1 item 11d"
     if cfg.num_experts:
         return f"{cfg.name}: MoE layers are ported with ROADMAP Queue 1 item 11b"
     if cfg.attention == "mla":
@@ -70,13 +81,24 @@ def zero_metrics(device: torch.device | str = "cpu") -> dict:
 def desc_layer(cfg: ModelConfig) -> dict:
     """Descriptor tree for ONE layer of the homogeneous stack."""
     _require_ported(cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        return {"ln": desc_norm(cfg), "mixer": desc_mamba2(cfg)}
+    return desc_shared_block(cfg)  # the attention family's layer is the same pre-norm attention + MLP block
+
+
+def desc_shared_block(cfg: ModelConfig) -> dict:
+    """zamba2's single shared transformer block (attention + MLP)."""
     return {"ln_attn": desc_norm(cfg), "attn": desc_attention(cfg), "ln_mlp": desc_norm(cfg),
             "mlp": desc_mlp(cfg)}
 
 
 def desc_stack(cfg: ModelConfig) -> dict:
-    """The stacked layers: every leaf of :func:`desc_layer` with a leading ``[num_layers]`` dim."""
-    return {"layers": stacked(desc_layer(cfg), cfg.num_layers)}
+    """The stacked layers (every leaf of :func:`desc_layer` with a leading ``[num_layers]`` dim),
+    and the hybrid's ``"shared"`` block."""
+    out = {"layers": stacked(desc_layer(cfg), cfg.num_layers)}
+    if cfg.family == "hybrid" and cfg.shared_attn_every > 0:
+        out["shared"] = desc_shared_block(cfg)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +120,19 @@ def apply_attn_layer(
     h = apply_norm(params["ln_mlp"], x, cfg)
     x = x + apply_mlp(params["mlp"], h, cfg)
     return x, new_cache, zero_metrics(x.device)
+
+
+def apply_ssm_layer(
+    params: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    state: Optional[SSMState],
+    return_state: bool,
+) -> tuple[torch.Tensor, Optional[SSMState]]:
+    """Pre-norm mamba2 mixer with a residual. Returns (x, state')."""
+    h = apply_norm(params["ln"], x, cfg)
+    y, new_state = apply_mamba2(params["mixer"], h, cfg, state, return_state)
+    return x + y, new_state
 
 
 # the products of x with a weight: what "block" remat saves
@@ -130,11 +165,30 @@ def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
 
 
 def _unstack(tree: Tree, n: int) -> list[Tree]:
-    """Per-layer views of a stacked tree (``unbind``: one ``stack`` in the backward pass, not n copies)."""
+    """Per-layer views of a stacked tree of dicts and cache dataclasses (``unbind``: one ``stack`` in
+    the backward pass, not n copies). ``None`` gives n ``None``s; a static field is repeated."""
     if isinstance(tree, torch.Tensor):
         return list(tree.unbind(0))
-    per_key = {k: _unstack(v, n) for k, v in tree.items()}
-    return [{k: per_key[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, dict):
+        per_key = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][i] for k in tree} for i in range(n)]
+    if dataclasses.is_dataclass(tree):
+        per_field = {f.name: _unstack(getattr(tree, f.name), n) for f in dataclasses.fields(tree)}
+        return [dataclasses.replace(tree, **{k: v[i] for k, v in per_field.items()}) for i in range(n)]
+    return [tree] * n
+
+
+def _stack(trees: list[Tree]) -> Tree:
+    """The inverse of :func:`_unstack`: a leading dim of ``len(trees)`` on every tensor."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(
+            first, **{f.name: _stack([getattr(t, f.name) for t in trees]) for f in dataclasses.fields(first)})
+    return first
 
 
 def _mean_metrics(metrics: list[dict]) -> dict:
@@ -190,18 +244,103 @@ def _apply_attn_stack(
         return apply_attn_layer(p, x, positions, cfg, cache)
 
     step = _remat(cached, cfg)
-    ks, vs, nps = caches.k.unbind(0), caches.v.unbind(0), caches.next_pos.unbind(0)
-    new_k, new_v, new_pos, mets = [], [], [], []
-    for i, p in enumerate(layers):
-        cache = KVCache(k=ks[i], v=vs[i], next_pos=nps[i], rolling=caches.rolling)
+    new_caches, mets = [], []
+    for p, cache in zip(layers, _unstack(caches, L)):
         x, nc, m = step(p, x, cache)
-        new_k.append(nc.k)
-        new_v.append(nc.v)
-        new_pos.append(nc.next_pos)
+        new_caches.append(nc)
         mets.append(m)
-    new_caches = KVCache(k=torch.stack(new_k), v=torch.stack(new_v), next_pos=torch.stack(new_pos),
-                         rolling=caches.rolling)
-    return x, new_caches, _mean_metrics(mets)
+    return x, _stack(new_caches), _mean_metrics(mets)
+
+
+# ---------------------------------------------------------------------------
+# SSM stack
+# ---------------------------------------------------------------------------
+
+
+def _ssm_layer_step(cfg: ModelConfig, return_state: bool) -> Callable:
+    """One mamba2 layer under ``cfg.remat``: (x, params, state) -> (x, state')."""
+    return _remat(lambda x, p, st: apply_ssm_layer(p, x, cfg, st, return_state), cfg)
+
+
+def _apply_ssm_stack(
+    params: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    states: Optional[SSMState],  # stacked [L, ...] or None
+    return_state: bool,
+) -> tuple[torch.Tensor, Optional[SSMState]]:
+    L = cfg.num_layers
+    step = _ssm_layer_step(cfg, return_state)
+    new_states = []
+    for p, st in zip(_unstack(params["layers"], L), _unstack(states, L)):
+        x, ns = step(x, p, st)
+        new_states.append(ns)
+    return x, (_stack(new_states) if new_states[0] is not None else None)
+
+
+# ---------------------------------------------------------------------------
+# Hybrid (zamba2) stack: segments of [shared attn block + k mamba layers]
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridCache:
+    """Decode state for the hybrid stack: per-layer SSM states stacked
+    [A, k, ...] + per-application shared-attention KV caches stacked [A, ...]."""
+
+    ssm: SSMState
+    attn: KVCache
+
+
+def _segments(cfg: ModelConfig) -> tuple[int, int]:
+    """(A segments, k mamba layers per segment)."""
+    k = cfg.shared_attn_every
+    if cfg.num_layers % k:
+        raise ValueError(f"{cfg.name}: num_layers {cfg.num_layers} does not divide into segments of {k}")
+    return cfg.num_layers // k, k
+
+
+def _apply_hybrid_stack(
+    params: dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cfg: ModelConfig,
+    caches: Optional[HybridCache],
+    return_state: bool,
+) -> tuple[torch.Tensor, Optional[HybridCache]]:
+    A, k = _segments(cfg)
+    layers = _unstack(params["layers"], cfg.num_layers)
+    shared = params["shared"]
+
+    # nested remat, as the reference's: the checkpointed segment's recompute
+    # must not keep every inner layer's activations at once
+    inner = _ssm_layer_step(cfg, return_state)
+
+    def seg_body(x: torch.Tensor, attn_cache: Optional[KVCache], ssm_seg: Optional[SSMState],
+                 *p_seg: dict) -> tuple[torch.Tensor, Optional[SSMState], Optional[KVCache]]:
+        x, new_attn, _ = apply_attn_layer(shared, x, positions, cfg, attn_cache)
+        new_ssm = []
+        for p, st in zip(p_seg, _unstack(ssm_seg, k)):
+            x, ns = inner(x, p, st)
+            new_ssm.append(ns)
+        return x, (_stack(new_ssm) if new_ssm[0] is not None else None), new_attn
+
+    seg_body = _remat(seg_body, cfg)
+    ssm_in = _unstack(caches.ssm if caches is not None else None, A)
+    attn_in = _unstack(caches.attn if caches is not None else None, A)
+    ssm_out, attn_out = [], []
+    for a in range(A):
+        x, ns, na = seg_body(x, attn_in[a], ssm_in[a], *layers[a * k : (a + 1) * k])
+        ssm_out.append(ns)
+        attn_out.append(na)
+    if ssm_out[0] is None or attn_out[0] is None:
+        return x, None
+    return x, HybridCache(ssm=_stack(ssm_out), attn=_stack(attn_out))
+
+
+# ---------------------------------------------------------------------------
+# Public stack API
+# ---------------------------------------------------------------------------
 
 
 def apply_stack(
@@ -209,29 +348,42 @@ def apply_stack(
     x: torch.Tensor,  # [B, L, D] embedded inputs
     positions: torch.Tensor,  # [L] int32
     cfg: ModelConfig,
-    caches: Optional[KVCache] = None,
+    caches: Optional[Tree] = None,
     return_state: bool = False,
-) -> tuple[torch.Tensor, Optional[KVCache], dict]:
+) -> tuple[torch.Tensor, Optional[Tree], dict]:
     """Run the full layer stack. Returns (hidden, caches', metrics).
 
     ``caches``: None = stateless forward (training / encoder); a stacked
-    cache = prefill (L>1) or decode (L=1) step. ``return_state`` is the
-    reference's flag for SSM prefill; the attention stack has no such state.
+    cache = prefill (L>1) or decode (L=1) step. For the SSM and hybrid
+    stacks, ``return_state=True`` without caches builds the decode state
+    from the parallel form (the hybrid then returns ``None``: it has no KV
+    cache to fill, as the reference's). The attention stack has no such state.
 
     Raises:
-        NotImplementedError: ``cfg`` is an MoE, MLA, SSM or hybrid config.
+        NotImplementedError: ``cfg`` is an MoE or MLA config.
     """
-    del return_state
     _require_ported(cfg)
+    if cfg.family == "ssm":
+        want_state = caches is not None or return_state
+        x, new_states = _apply_ssm_stack(params, x, cfg, caches, want_state)
+        return x, new_states, zero_metrics(x.device)
+    if cfg.family == "hybrid":
+        want_state = caches is not None or return_state
+        x, new_caches = _apply_hybrid_stack(params, x, positions, cfg, caches, want_state)
+        return x, new_caches, zero_metrics(x.device)
     return _apply_attn_stack(params, x, positions, cfg, caches)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                device: str | torch.device = "cpu") -> Optional[KVCache]:
+                device: str | torch.device = "cpu") -> Optional[Tree]:
     """Zero-initialized stacked decode caches for the whole stack (``None`` for an encoder)."""
     _require_ported(cfg)
     if cfg.is_encoder:
         return None
-    one = init_kv_cache(cfg, batch, max_len, device=device)
-    rep = lambda t: t.expand(cfg.num_layers, *t.shape).clone()
-    return KVCache(k=rep(one.k), v=rep(one.v), next_pos=rep(one.next_pos), rolling=one.rolling)
+    if cfg.family == "ssm":
+        return _stack([init_ssm_state(cfg, batch, device)] * cfg.num_layers)
+    if cfg.family == "hybrid":
+        A, k = _segments(cfg)
+        ssm = _stack([_stack([init_ssm_state(cfg, batch, device)] * k)] * A)
+        return HybridCache(ssm=ssm, attn=_stack([init_kv_cache(cfg, batch, max_len, device=device)] * A))
+    return _stack([init_kv_cache(cfg, batch, max_len, device=device)] * cfg.num_layers)

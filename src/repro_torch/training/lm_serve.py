@@ -4,7 +4,9 @@ The counterpart of ``repro.training.lm_serve`` on one device. A decode step
 samples greedily, or from ``softmax(logits / temperature)`` with an
 explicit ``torch.Generator`` (the reference's key), and returns the sampled
 token, so a serving loop is a host loop over this function. The steps run
-without autograd and read nothing back to the host.
+without autograd and read nothing back to the host. A cache is whatever
+tree ``LMModel.init_cache`` gives: a ``KVCache``, an ``SSMState`` or a
+``HybridCache``.
 """
 from __future__ import annotations
 
@@ -12,23 +14,22 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.models.attention import KVCache
 from repro_torch.models.model import LMModel
 
 Tree = Any
 
 
-def make_prefill_step(model: LMModel) -> Callable[[Tree, torch.Tensor, KVCache], tuple[torch.Tensor, KVCache]]:
+def make_prefill_step(model: LMModel) -> Callable[[Tree, torch.Tensor, Tree], tuple[torch.Tensor, Tree]]:
     """``prefill_step(params, prompt [B, L], zero cache) -> (last logits [B, 1, V], cache')``."""
 
     @torch.no_grad()
-    def prefill_step(params: Tree, inputs: torch.Tensor, cache: KVCache) -> tuple[torch.Tensor, KVCache]:
+    def prefill_step(params: Tree, inputs: torch.Tensor, cache: Tree) -> tuple[torch.Tensor, Tree]:
         return model.prefill(params, inputs, cache)
 
     return prefill_step
 
 
-def make_decode_step(model: LMModel, temperature: float = 0.0) -> Callable[..., tuple[torch.Tensor, KVCache]]:
+def make_decode_step(model: LMModel, temperature: float = 0.0) -> Callable[..., tuple[torch.Tensor, Tree]]:
     """``decode_step(params, tokens [B, 1], cache, pos [], generator=None) -> (next [B, 1] int32, cache')``.
 
     ``pos`` is the absolute position of ``tokens``. With ``temperature > 0``
@@ -37,8 +38,8 @@ def make_decode_step(model: LMModel, temperature: float = 0.0) -> Callable[..., 
     """
 
     @torch.no_grad()
-    def decode_step(params: Tree, tokens: torch.Tensor, cache: KVCache, pos: torch.Tensor,
-                    generator: Optional[torch.Generator] = None) -> tuple[torch.Tensor, KVCache]:
+    def decode_step(params: Tree, tokens: torch.Tensor, cache: Tree, pos: torch.Tensor,
+                    generator: Optional[torch.Generator] = None) -> tuple[torch.Tensor, Tree]:
         logits, cache = model.decode(params, tokens, cache, pos.reshape(1))
         last = logits[:, -1, :]
         if temperature > 0:

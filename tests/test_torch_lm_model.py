@@ -38,8 +38,7 @@ from repro_torch.training.train import loss_and_grads
 
 FAMILY = ("gemma-2b", "yi-6b", "chameleon-34b", "nemotron-4-340b", "hubert-xlarge")
 DECODERS = tuple(a for a in FAMILY if a != "hubert-xlarge")
-UNPORTED = {"grok-1-314b": "11b", "mixtral-8x22b": "11b", "minicpm3-4b": "11c", "mamba2-130m": "11d",
-            "zamba2-2.7b": "11d"}
+UNPORTED = {"grok-1-314b": "11b", "mixtral-8x22b": "11b", "minicpm3-4b": "11c"}
 B, T = 2, 16
 
 

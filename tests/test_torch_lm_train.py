@@ -150,7 +150,7 @@ def test_the_example_runs_on_the_cpu():
 @pytest.mark.parametrize("argv, error, match", [
     (SMALL + ["--model-parallel", "2"], NotImplementedError, "item 9"),
     (["--device", "cpu", "--arch", "mixtral-8x22b", "--reduced"], NotImplementedError, "11b"),
-    (["--device", "cpu", "--arch", "zamba2-2.7b", "--reduced"], NotImplementedError, "11d"),
+    (["--device", "cpu", "--arch", "minicpm3-4b", "--reduced"], NotImplementedError, "11c"),
     (["--arch", "yi-6b", "--reduced"], RuntimeError, "no CUDA device"),
 ])
 def test_the_cli_refuses_what_it_cannot_run(argv, error, match):
