@@ -131,26 +131,40 @@ Phases (any failure stops the run with a non-zero exit and no result line):
    with its own checks passed, with their launch counts;
 14. the LM scaffold (``repro_torch.models``, ``training``), with the Gram
    counters reset just before and read just after (it must launch no Gram
-   kernel): ``lm_reduced_parity``, each reduced config that builds
+   kernel): ``lm_reduced_parity``, each of the ten configs reduced
    (gemma-2b, yi-6b, chameleon-34b, nemotron-4-340b, hubert-xlarge,
-   mamba2-130m, zamba2-2.7b) in f32 on the card against the port's CPU run
-   from the same params: forward logits through the dense and the flash
-   path, one train step's loss and grad norm, each within 1e-4 (TF32 stays
-   off); then for gemma-2b, zamba2-2.7b and mamba2-130m at full width
-   (``LM_FULL_WIDTH``: the reference's parameter count asserted, f32
-   params, bf16 activations, ``remat="full"``) ``lm_<name>_train``, one
-   4,096-token sequence (train_4k with its global batch cut to 1), 8 steps
-   at lr 1e-4 on that batch: every loss finite and the last below the
-   first; step ms, tokens/s, model FLOPs per token and their share of the
-   dense bf16 peak, peak memory, and one more step traced; and
-   ``lm_<name>_decode``: ``decode_gate`` (a 4,096-token prefill and 16
-   one-token decode steps against one prefill of all 4,112 tokens, cache
-   field by cache field and layer by layer, and against ``forward`` on the
-   stack's output minus the own embedding, at float32 activations, and for
-   zamba2-2.7b and mamba2-130m the SSM state fields and that residual again
-   in bf16 within 0.5), then prefill ms, greedy decode ms per token over 32 tokens and the cache's
-   bytes. ``python3 chip_smoke.py --lm-only`` runs these phases alone and
-   prints no result line;
+   mamba2-130m, zamba2-2.7b, minicpm3-4b's MLA, mixtral-8x22b's and
+   grok-1-314b's MoE, grok's GELU experts and output softcap) in f32 on the
+   card against the port's CPU run from the same params: forward logits
+   through the dense and the flash path, one train step's loss and grad
+   norm, each within 1e-4 (TF32 stays off); then at full width
+   (``LM_FULL_WIDTH``: the reference's parameter count asserted, the
+   config's param dtype, bf16 activations, ``remat="full"``) gemma-2b,
+   zamba2-2.7b, mamba2-130m, minicpm3-4b (62 layers, MLA) and
+   mixtral-8x22b with its depth cut to ``MIXTRAL_LAYERS`` = 2 of 56 layers
+   (5,410,781,184 params, bf16): ``lm_<name>_train``, one 4,096-token
+   sequence (train_4k with its global batch cut to 1), 8 steps (minicpm3:
+   ``MINICPM3_STEPS`` = 6) at lr 1e-4 on that batch: every loss finite and
+   the last below the first (for mixtral each step's ``drop_fraction``,
+   ``aux_loss`` and ``router_z`` at the published capacity factor 1.25);
+   step ms, tokens/s, model FLOPs per
+   token and their share of the dense bf16 peak, peak memory, and one more
+   step traced; and ``lm_<name>_decode``: ``decode_gate`` (a 4,096-token
+   prefill and 16 one-token decode steps against one prefill of all 4,112
+   tokens, cache field by cache field and layer by layer: K, V, MLA's
+   ``ckv`` and ``kpe``, the SSD state, the conv window; and against
+   ``forward`` on the stack's output minus the own embedding; at float32
+   activations; minicpm3-4b's 4,096-token training step and prefill take
+   the materialized MLA path and its decode steps the absorbed one, so the
+   gate holds the two against each other; mixtral at capacity factor
+   E / k = 4, so no grouping drops a token, and in two reads: a 4,080-token
+   prompt, P + T = W = 4,096, with its K/V gated, then a 4,096-token prompt
+   decoded across the rolling cache's wrap, its residual gated against
+   ``forward`` alone), and for zamba2-2.7b and mamba2-130m the SSM state
+   fields and that residual again in bf16 within 0.5; then prefill ms,
+   greedy decode ms per token over 32 tokens and the cache's bytes.
+   ``python3 chip_smoke.py --lm-only`` runs these phases alone and prints
+   no result line;
 15. the ``kernels`` JSON line, the card line again, and last the ``ok`` line.
 
 Tolerance of a kernel against its plain version: the plain version
@@ -2108,13 +2122,23 @@ def phase_examples(gram_kernel, tmp: Path, card: str) -> dict:
 
 
 LM_ARCHS = ("gemma-2b", "yi-6b", "chameleon-34b", "nemotron-4-340b", "hubert-xlarge", "mamba2-130m",
-            "zamba2-2.7b")  # the ported configs
+            "zamba2-2.7b", "minicpm3-4b", "mixtral-8x22b", "grok-1-314b")  # every config
 LM_PARITY_TOL = 1e-4  # card against the port's CPU run, f32 activations: logits, loss, grad norm
-# (arch, phase label, the reference's build_model(get_config(arch)).num_params()) run at full width
-LM_FULL_WIDTH = (("gemma-2b", "gemma2b", 2_506_172_416), ("zamba2-2.7b", "zamba2", 2_340_750_240),
-                 ("mamba2-130m", "mamba2", 129_001_920))
-LM_SEQ = 4096  # train_4k's sequence; its global batch of 256 is cut to 1
 LM_STEPS = 8
+# mixtral-8x22b's 56 layers (140.6 B params) do not fit one card: its first 2 layers, at full width, train
+# with bf16 params and grads and f32 AdamW moments, 12 bytes a param, 64.9 GB of state (PERF.md section 6)
+MIXTRAL_LAYERS = 2
+# minicpm3-4b's step takes ~10 s (its 62 layers launch ~284k kernels, PERF.md section 5): 6 steps keep the
+# whole script well inside its time
+MINICPM3_STEPS = 6
+# (arch, phase label, the reference's build_model(get_config(arch) at that depth).num_params(), layers (None:
+# the published depth), training steps) run at full width
+LM_FULL_WIDTH = (("gemma-2b", "gemma2b", 2_506_172_416, None, LM_STEPS),
+                 ("zamba2-2.7b", "zamba2", 2_340_750_240, None, LM_STEPS),
+                 ("mamba2-130m", "mamba2", 129_001_920, None, LM_STEPS),
+                 ("minicpm3-4b", "minicpm3", 4_073_937_408, None, MINICPM3_STEPS),
+                 ("mixtral-8x22b", "mixtral", 5_410_781_184, MIXTRAL_LAYERS, LM_STEPS))
+LM_SEQ = 4096  # train_4k's sequence; its global batch of 256 is cut to 1
 LM_LR = 1e-4  # constant: the reference's 3e-3 schedule is for the reduced configs
 DECODE_PROMPT = 4096
 DECODE_TOKENS = 32
@@ -2130,9 +2154,6 @@ DECODE_RESIDUAL_BAND = 1e-3  # decoded positions' stack output minus own embeddi
 DECODE_OWN_DTYPE_BAND = 0.5
 OWN_DTYPE_FIELDS = ("S", "conv")
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
-# the configs whose traced train step also records host (aten) events, to split device time by op;
-# the other configs' device time is already split (PERF.md section 5), and the host events cost seconds
-LM_OP_SPLIT = ("zamba2-2.7b",)
 
 
 def lm_max_err(torch, got, want, vocab: int) -> tuple[float, float]:
@@ -2143,7 +2164,7 @@ def lm_max_err(torch, got, want, vocab: int) -> tuple[float, float]:
 
 
 # the per-layer entry of each cache field: its dims after the stack's leading layer (and segment) dims
-CACHE_LAYER_DIMS = {"k": 4, "v": 4, "S": 4, "conv": 3}
+CACHE_LAYER_DIMS = {"k": 4, "v": 4, "S": 4, "conv": 3, "ckv": 3, "kpe": 3}
 
 
 def cache_leaves(torch, cache, path: str = "") -> dict:
@@ -2154,6 +2175,14 @@ def cache_leaves(torch, cache, path: str = "") -> dict:
     for f in dataclasses.fields(cache):
         out.update(cache_leaves(torch, getattr(cache, f.name), f"{path}.{f.name}".lstrip(".")))
     return out
+
+
+def gate_config(cfg):
+    """The config ``decode_gate`` runs: an MoE config at ``capacity_factor = num_experts /
+    num_experts_per_tok``, which makes C = g, so no grouping drops a token (``decode_gate``)."""
+    if cfg.num_experts:
+        return cfg.replace(capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+    return cfg
 
 
 def decode_gate(torch, model, params, tokens, P: int) -> dict:
@@ -2168,17 +2197,36 @@ def decode_gate(torch, model, params, tokens, P: int) -> dict:
       max |Δ| over max |forward's|;
     * ``cache``: per cache field, the worst layer's max |Δ| over that
       layer's max |value| of the decoded cache against the one-prefill
-      cache (K and V at every slot 0 .. P+T-1; the SSD state S and the conv
-      window of every mamba2 layer), with every ``next_pos`` equal to P + T;
+      cache (K and V at every slot 0 .. P+T-1; MLA's latent ``ckv`` and
+      RoPE key ``kpe``; the SSD state S and the conv window of every mamba2
+      layer), with every ``next_pos`` equal to P + T;
     * ``logits`` (a record, not a gate): the decoded positions' logits
       against forward's, max |Δ| over the largest logit, which the tied
       own-token term dominates.
+
+    Two yardsticks need care. An MoE config runs at ``gate_config``'s
+    capacity factor: the one-pass run and the prefill + decode run split the
+    tokens into different groups (4,096 tokens make two groups of 2,048,
+    4,080 or 4,112 one group), and at the published factor each grouping
+    drops different tokens, last of all the decoded positions, so a correct
+    decode would fail; with C = g nothing is dropped and a token's output
+    does not depend on its group. With a sliding window W below P + T the
+    one-prefill cache is no yardstick: the reference attends over the cache
+    alone (``src/repro/models/attention.py:356-375``), so a prefill of more
+    than W tokens into the rolling cache overwrites keys that the early
+    queries of the next layer still need, and the port keeps that. Such a
+    read (``cache_gated`` false) compares the residual against ``forward``
+    alone, which masks the window with no cache; the caller keeps P <= W,
+    so the prefill of the decoded run is exact and its decode steps run
+    across the wrap.
     """
     from repro_torch.models import transformer
 
-    cfg = model.cfg
+    cfg = gate_config(model.cfg)
+    model = dataclasses.replace(model, cfg=cfg)
     dev = tokens.device
     T = tokens.shape[1] - P
+    cache_gated = cfg.sliding_window is None or P + T <= cfg.sliding_window
     positions = lambda a, b: torch.arange(a, b, dtype=torch.int32, device=dev)
     with torch.no_grad():
         x = model._embed(params, tokens)
@@ -2186,7 +2234,7 @@ def decode_gate(torch, model, params, tokens, P: int) -> dict:
         h_fwd = h[:, P:]
         r_fwd = h_fwd.float() - x[:, P:].float()
         del h, x
-        _, full = model.prefill(params, tokens, model.init_cache(1, P + T, dev))
+        full = model.prefill(params, tokens, model.init_cache(1, P + T, dev))[1] if cache_gated else None
         _, cache = model.prefill(params, tokens[:, :P], model.init_cache(1, P + T, dev))
         h_dec = []
         for t in range(P, P + T):
@@ -2199,10 +2247,13 @@ def decode_gate(torch, model, params, tokens, P: int) -> dict:
     rel = lambda got, want: float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
     cache_err, next_pos = {}, set()
     got_leaves = cache_leaves(torch, cache)
-    for name, want in cache_leaves(torch, full).items():
+    for name, got in got_leaves.items():
+        if name.split(".")[-1] == "next_pos":
+            next_pos |= set(got.reshape(-1).tolist())
+    for name, want in (cache_leaves(torch, full) if cache_gated else {}).items():
         field, got = name.split(".")[-1], got_leaves[name]
         if field == "next_pos":
-            next_pos |= set(want.reshape(-1).tolist()) | set(got.reshape(-1).tolist())
+            next_pos |= set(want.reshape(-1).tolist())
             continue
         layers = math.prod(want.shape[: want.dim() - CACHE_LAYER_DIMS[field]])  # one row per layer
         want, got = want.float().reshape(layers, -1), got.float().reshape(layers, -1)
@@ -2210,7 +2261,9 @@ def decode_gate(torch, model, params, tokens, P: int) -> dict:
         cache_err[name] = {"worst": max(per_layer), "worst_layer": per_layer.index(max(per_layer)),
                            "layers": layers}
     V = cfg.vocab_size
-    return {"prompt": P, "teacher_tokens": T, "residual_rel_err": rel(r_dec, r_fwd),
+    return {"prompt": P, "teacher_tokens": T, "cache_gated": cache_gated, "window": cfg.sliding_window,
+            "capacity_factor": cfg.capacity_factor if cfg.num_experts else None,
+            "residual_rel_err": rel(r_dec, r_fwd),
             "residual_max_abs": float(r_fwd.abs().max()), "cache_rel_err": cache_err,
             "next_pos": sorted(next_pos),
             "logits_rel_err_record": rel(logits_dec[..., :V].float(), logits_fwd[..., :V].float())}
@@ -2234,7 +2287,7 @@ def check_decode_gate(name: str, gate: dict, cache_band: float = DECODE_CACHE_BA
 
 
 def phase_lm_reduced_parity(torch, card: str) -> None:
-    """``lm_reduced_parity``: each reduced attention-family config, f32 activations, on the card against the CPU.
+    """``lm_reduced_parity``: each reduced config (``LM_ARCHS``), f32 activations, on the card against the CPU.
 
     The same params (drawn once on the CPU, copied to the card) and batch:
     forward logits through the dense path and through the flash path (small
@@ -2281,9 +2334,12 @@ def phase_lm_reduced_parity(torch, card: str) -> None:
 
 
 def model_flops_per_token(model, seq: int) -> int:
-    """Training FLOPs per token: 6 x matmul params, plus 12 x attention applications x heads x head_dim x
-    seq for the attention products, plus 3 x the SSD products of each mamba2 layer (``ssd_chunked``'s
-    intra-chunk ``C Bᵀ`` and ``M (dt x)`` over a chunk of Q, the state's two ``[H, P, N]`` products)."""
+    """Training FLOPs per token: 6 x matmul params (MoE: the active ones, the top-k experts), plus 6 x
+    attention applications x heads x (the QK width + the PV width) x the keys a query sees (seq, or the
+    sliding window when shorter) for the attention products (MLA: QK over ``qk_nope + qk_rope``, PV over
+    ``v_head_dim``; else ``head_dim`` each), plus 3 x the SSD products of each mamba2 layer
+    (``ssd_chunked``'s intra-chunk ``C Bᵀ`` and ``M (dt x)`` over a chunk of Q, the state's two
+    ``[H, P, N]`` products)."""
     cfg = model.cfg
     if cfg.family == "ssm":
         attn_layers = 0
@@ -2291,27 +2347,36 @@ def model_flops_per_token(model, seq: int) -> int:
         attn_layers = cfg.num_layers // cfg.shared_attn_every
     else:
         attn_layers = cfg.num_layers
-    flops = 6 * model.matmul_params() + 12 * attn_layers * cfg.num_heads * cfg.head_dim * seq
+    if cfg.attention == "mla":
+        qk, pv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    else:
+        qk = pv = cfg.head_dim
+    span = min(seq, cfg.sliding_window or seq)
+    flops = 6 * model.matmul_params() + 6 * attn_layers * cfg.num_heads * (qk + pv) * span
     if cfg.uses_ssm:
         HP, GN = cfg.ssm_heads * cfg.ssm_headdim, cfg.ssm_ngroups * cfg.ssm_state
         flops += 3 * cfg.num_layers * (2 * cfg.ssm_chunk * (HP + GN) + 4 * HP * cfg.ssm_state)
     return flops
 
 
-def phase_lm_train(torch, arch: str, label: str, want_params: int, card: str) -> tuple:
-    """``lm_<arch>_train``: ``arch`` at full width, f32 params, bf16 activations, ``remat="full"``.
+def phase_lm_train(torch, arch: str, label: str, want_params: int, layers, steps: int, card: str) -> tuple:
+    """``lm_<arch>_train``: ``arch`` at full width, its own param dtype (f32 but for mixtral's bf16), bf16
+    activations, ``remat="full"``, at ``layers`` layers (``None``: the published depth).
 
     One sequence of ``LM_SEQ`` tokens (train_4k's, global batch 256 cut to
-    1), ``LM_STEPS`` steps on that repeated batch at a constant rate of
+    1), ``steps`` steps on that repeated batch at a constant rate of
     ``LM_LR``: ``num_params`` equal to the reference's count, every loss
-    finite and the last below the first. Prints the step ms (median of
-    steps 3-8), tokens/s, model FLOPs per token (``model_flops_per_token``)
+    finite and the last below the first; for an MoE config each step's
+    ``drop_fraction``, ``aux_loss`` and ``router_z`` at the published
+    capacity factor. Prints the step ms (median of steps 3 on), tokens/s,
+    model FLOPs per token (``model_flops_per_token``)
     and their share of the card's dense bf16 peak, and peak memory; then
     one more step under torch.profiler: device kernel ms, launches, the
-    busy share against the median step, the longest kernels, for the
-    configs in ``LM_OP_SPLIT`` the aten ops whose own launches took the
-    most device time, and the seconds the trace took. Returns (model,
-    params) for the decode phase.
+    busy share against the median step, the longest kernels, and the
+    seconds the trace took (device events only: recording the host's aten
+    events too, to split device time by op as PERF.md section 5 does for
+    gemma-2b, zamba2-2.7b and mamba2-130m, cost zamba2's phase 55-85 s).
+    Returns (model, params) for the decode phase.
     """
     from repro_torch.configs import get_config
     from repro_torch.core import prng
@@ -2320,10 +2385,12 @@ def phase_lm_train(torch, arch: str, label: str, want_params: int, card: str) ->
     from repro_torch.training.optimizer import AdamW
     from repro_torch.training.train import TrainState, make_train_step
 
-    cfg = get_config(arch)
+    published = get_config(arch)
+    cfg = published if layers is None else published.replace(num_layers=layers)
     model = build_model(cfg)
     if model.num_params() != want_params:
-        raise AssertionError(f"{arch} has {model.num_params()} params, the reference {want_params}")
+        raise AssertionError(f"{arch} at {cfg.num_layers} layers has {model.num_params()} params, "
+                             f"the reference {want_params}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2334,38 +2401,33 @@ def phase_lm_train(torch, arch: str, label: str, want_params: int, card: str) ->
     state = TrainState(params=params, opt=opt.init(params), step=torch.zeros((), dtype=torch.int32, device="cuda"))
     batch = synthetic_lm_batch(step_generator(0, 0), cfg, 1, LM_SEQ, "cuda")
     step_fn = make_train_step(model, opt)
-    losses, seconds, gnorms = [], [], []
-    for _ in range(LM_STEPS):
+    losses, seconds, gnorms, router = [], [], [], []
+    for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         losses.append(float(metrics["loss"]))  # waits for the step
         seconds.append(time.perf_counter() - t0)
         gnorms.append(float(metrics["grad_norm"]))
+        if cfg.num_experts:
+            router.append({k: float(metrics[k]) for k in ("drop_fraction", "aux_loss", "router_z")})
     step_s = statistics.median(seconds[2:])
     from torch.profiler import ProfilerActivity, profile
 
-    split_ops = arch in LM_OP_SPLIT
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if split_ops else [ProfilerActivity.CUDA]
     t0 = time.perf_counter()
-    with profile(activities=activities) as prof:  # one more step, traced
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # one more step, traced
         state, _ = step_fn(state, batch)
         torch.cuda.synchronize()
     rows = kernel_rows(torch, prof)
     traced = {"device_kernel_ms": sum(r[0] for r in rows), "kernel_launches": sum(r[1] for r in rows),
               "busy_share": sum(r[0] for r in rows) / (step_s * 1e3),
               "top_kernels_ms_count": [[round(ms, 3), n, name[:90]] for ms, n, name in rows[:12]]}
-    if split_ops:
-        ops = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key) for ev in prof.key_averages()
-                      if ev.device_type == torch.autograd.DeviceType.CPU and ev.self_device_time_total > 0),
-                     reverse=True)
-        traced["top_ops_device_ms_calls"] = [[round(ms, 3), n, name] for ms, n, name in ops[:15]]
-    traced["host_events"] = split_ops
     traced["trace_seconds"] = time.perf_counter() - t0  # the traced step and reading its trace
     flops_token = model_flops_per_token(model, LM_SEQ)
     line = {"phase": label, "card": card, "num_params": model.num_params(),
-            "matmul_params": model.matmul_params(), "seq": LM_SEQ, "batch": 1,
-            "reduced": {"global_batch": [256, 1]}, "remat": cfg.remat, "param_dtype": cfg.param_dtype,
+            "matmul_params": model.matmul_params(), "seq": LM_SEQ, "batch": 1, "steps": steps,
+            "reduced": {"global_batch": [256, 1], "layers": [cfg.num_layers, published.num_layers]},
+            "remat": cfg.remat, "param_dtype": cfg.param_dtype,
             "activation_dtype": cfg.activation_dtype, "init_s": init_s, "losses": losses, "grad_norms": gnorms,
             "step_seconds": seconds, "step_ms": step_s * 1e3, "tokens_per_s": LM_SEQ / step_s,
             "model_flops_per_token": flops_token,
@@ -2375,26 +2437,41 @@ def phase_lm_train(torch, arch: str, label: str, want_params: int, card: str) ->
         line["flash_blocks"] = [-(-LM_SEQ // cfg.attn_q_chunk), -(-LM_SEQ // cfg.attn_kv_chunk)]
     if cfg.uses_ssm:
         line["ssd_chunks"] = LM_SEQ // cfg.ssm_chunk
+    if cfg.num_experts:
+        line["router"] = {"capacity_factor": cfg.capacity_factor, "per_step": router}
     print(json.dumps(line), flush=True)
     if not all(math.isfinite(x) for x in losses + gnorms) or not losses[-1] < losses[0]:
-        raise AssertionError(f"{arch}: loss not finite and falling over {LM_STEPS} steps: {losses}")
+        raise AssertionError(f"{arch}: loss not finite and falling over {steps} steps: {losses}")
     del state, opt, metrics
     torch.cuda.empty_cache()
     return model, params
 
 
-def phase_lm_decode(torch, model, params, label: str, card: str) -> None:
+def gate_reads(cfg) -> list:
+    """(P, T) of each ``decode_gate`` read: ``DECODE_PROMPT`` and ``TEACHER_TOKENS``; with a sliding
+    window W < P + T two: P = W - T (the cache fields gated, the one-pass prefill within the window),
+    then P = W, decoding across the wrap (the residual against ``forward`` alone)."""
+    P, T, W = DECODE_PROMPT, TEACHER_TOKENS, cfg.sliding_window
+    if W is None or P + T <= W:
+        return [(P, T)]
+    return [(W - T, T), (min(P, W), T)]
+
+
+def phase_lm_decode(torch, model, params, label: str, card: str, published_layers: int) -> None:
     """``lm_<arch>_decode``: ``decode_gate`` after a ``DECODE_PROMPT``-token prefill, then prefill and greedy decode timed.
 
     The gate (``decode_gate``, ``check_decode_gate``) feeds
     ``TEACHER_TOKENS`` tokens one at a time after the prompt; it runs the
     params with float32 activations (``GATE_ACTIVATIONS``), where the bf16
-    rounding of the embedding-sized residual stream does not hide a fault.
-    The same comparison runs in the config's own bf16 too: for the SSM and
-    hybrid configs its ``S`` and ``conv`` fields and residual are held to
-    ``DECODE_OWN_DTYPE_BAND``, which a bf16-only fault of the state breaks;
-    its attention fields and the attention family's are a record (bf16
-    rounding there is as large as a zeroed decode attention). Then a prefill of the prompt (ms) and ``DECODE_TOKENS`` greedy tokens
+    rounding of the embedding-sized residual stream does not hide a fault,
+    an MoE config at ``gate_config``'s capacity factor, and a config with a
+    sliding window shorter than prompt and decode in the two reads of
+    ``gate_reads``. The first read runs in the config's own bf16 too: for
+    the SSM and hybrid configs its ``S`` and ``conv`` fields and residual
+    are held to ``DECODE_OWN_DTYPE_BAND``, which a bf16-only fault of the
+    state breaks; its attention fields and the attention family's are a
+    record (bf16 rounding there is as large as a zeroed decode attention).
+    Then a prefill of the prompt (ms) and ``DECODE_TOKENS`` greedy tokens
     (ms per token) in the config's own bf16, each ended by a synchronize,
     and the cache's bytes.
     """
@@ -2403,14 +2480,21 @@ def phase_lm_decode(torch, model, params, label: str, card: str) -> None:
     from repro_torch.utils import tree_size_bytes
 
     cfg = model.cfg
+    reads = gate_reads(cfg)
     P, T = DECODE_PROMPT, TEACHER_TOKENS
     gen = torch.Generator().manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (1, P + T), generator=gen).to(torch.int32).cuda()
+    tokens = torch.randint(0, cfg.vocab_size, (1, max(p for p, _ in reads) + T), generator=gen)
+    tokens = tokens.to(torch.int32).cuda()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    gate = decode_gate(torch, build_model(cfg.replace(activation_dtype=GATE_ACTIVATIONS)), params, tokens, P)
-    gate_s = time.perf_counter() - t0
-    own = decode_gate(torch, model, params, tokens, P)  # the same in the config's own dtype
+    gate_model = build_model(cfg.replace(activation_dtype=GATE_ACTIVATIONS))
+    gates = []
+    for p, t in reads:
+        t0 = time.perf_counter()
+        gate = decode_gate(torch, gate_model, params, tokens[:, : p + t], p)
+        gates.append({**gate, "activation_dtype": GATE_ACTIVATIONS, "cache_band": DECODE_CACHE_BAND,
+                      "residual_band": DECODE_RESIDUAL_BAND, "seconds": time.perf_counter() - t0})
+    first_p, first_t = reads[0]
+    own = decode_gate(torch, model, params, tokens[:, : first_p + first_t], first_p)  # the first read, own dtype
     prefill, decode = make_prefill_step(model), make_decode_step(model)
     times = {}
     with torch.no_grad():
@@ -2430,18 +2514,20 @@ def phase_lm_decode(torch, model, params, label: str, card: str) -> None:
             torch.cuda.synchronize()
             times["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / (DECODE_TOKENS - 1)
     generated = torch.cat(out, dim=1)
-    line = {"phase": label, "card": card, "gate": {**gate, "activation_dtype": GATE_ACTIVATIONS,
-                                                   "cache_band": DECODE_CACHE_BAND,
-                                                   "residual_band": DECODE_RESIDUAL_BAND, "seconds": gate_s},
+    line = {"phase": label, "card": card, "layers": [cfg.num_layers, published_layers],
+            "gate": gates[0], "gate_across_the_wrap": gates[1] if len(gates) > 1 else None,
             "gate_in_own_dtype": {"activation_dtype": cfg.activation_dtype, "gated": cfg.uses_ssm,
                                   "band": DECODE_OWN_DTYPE_BAND, "fields": OWN_DTYPE_FIELDS,
+                                  "capacity_factor": own["capacity_factor"],
                                   "residual_rel_err": own["residual_rel_err"],
                                   "cache_rel_err": {k: v["worst"] for k, v in own["cache_rel_err"].items()},
                                   "logits_rel_err": own["logits_rel_err_record"]},
             **times, "generated_tokens": int(generated.shape[1]), "cache_slots": P + DECODE_TOKENS,
-            "cache_bytes": tree_size_bytes(cache), "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "window": cfg.sliding_window, "cache_bytes": tree_size_bytes(cache),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     print(json.dumps(line), flush=True)
-    check_decode_gate(cfg.name, gate)
+    for gate in gates:
+        check_decode_gate(cfg.name, gate)
     if cfg.uses_ssm:
         check_decode_gate(f"{cfg.name} in {cfg.activation_dtype}", own, DECODE_OWN_DTYPE_BAND,
                           DECODE_OWN_DTYPE_BAND, OWN_DTYPE_FIELDS)
@@ -2451,16 +2537,18 @@ def phase_lm_decode(torch, model, params, label: str, card: str) -> None:
 
 def run_lm_phases(torch, gram_kernel, card: str) -> dict:
     """The LM phases, with the Gram counters reset just before and read just after (the LM path launches none)."""
+    from repro_torch.configs import get_config
+
     if gram_kernel is not None:
         reset_counters(gram_kernel)
     t0 = time.perf_counter()
     seconds = {}
     phase_lm_reduced_parity(torch, card)
     seconds["lm_reduced_parity"] = time.perf_counter() - t0
-    for arch, label, want_params in LM_FULL_WIDTH:
+    for arch, label, want_params, layers, steps in LM_FULL_WIDTH:
         t1 = time.perf_counter()
-        model, params = phase_lm_train(torch, arch, f"lm_{label}_train", want_params, card)
-        phase_lm_decode(torch, model, params, f"lm_{label}_decode", card)
+        model, params = phase_lm_train(torch, arch, f"lm_{label}_train", want_params, layers, steps, card)
+        phase_lm_decode(torch, model, params, f"lm_{label}_decode", card, get_config(arch).num_layers)
         del params
         torch.cuda.empty_cache()
         seconds[label] = time.perf_counter() - t1

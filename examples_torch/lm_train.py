@@ -2,14 +2,16 @@
 
     PYTHONPATH=src python examples_torch/lm_train.py --arch yi-6b --steps 60              # on the card
     PYTHONPATH=src python examples_torch/lm_train.py --device cpu --arch gemma-2b --steps 20
+    PYTHONPATH=src python examples_torch/lm_train.py --device cpu --arch minicpm3-4b --steps 20
+    PYTHONPATH=src python examples_torch/lm_train.py --device cpu --arch mixtral-8x22b --steps 20
 
 The port's counterpart of ``examples/lm_train.py``: the same train-step
 and launcher path (``python -m repro_torch.launch.train --help`` lists all
 knobs), at batch 8 and 64 tokens, with the reference's flags plus
-``--device``. The attention-family configs run (gemma-2b, yi-6b,
-chameleon-34b, nemotron-4-340b, hubert-xlarge), and so do mamba2-130m and
-zamba2-2.7b; the MoE and MLA configs raise, naming the ROADMAP item that
-ports them. Exits 0 when the loss fell.
+``--device``. Every config runs: the attention family (gemma-2b, yi-6b,
+chameleon-34b, nemotron-4-340b, hubert-xlarge), MLA (minicpm3-4b), MoE
+(grok-1-314b, mixtral-8x22b), mamba2-130m and zamba2-2.7b. Exits 0 when
+the loss fell.
 """
 import argparse
 import sys

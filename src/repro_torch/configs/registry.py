@@ -1,11 +1,8 @@
 """Architecture + shape registry: the assigned (arch x shape) grid.
 
 The counterpart of ``repro.configs.registry``, with the same ten configs
-and four shapes. Every config is data and loads here; the attention
-family (gemma-2b, yi-6b, chameleon-34b, nemotron-4-340b, hubert-xlarge),
-mamba2-130m and zamba2-2.7b build a model so far
-(``repro_torch.models.model.build_model`` raises for the MoE and MLA
-configs, naming the ROADMAP item that ports them).
+and four shapes. Every config is data and loads here, and
+``repro_torch.models.model.build_model`` builds each of them.
 
 ``runnable_cells()`` applies the DESIGN.md §5 skip rules:
   * ``long_500k`` needs sub-quadratic attention — runs only for ssm/hybrid

@@ -3,20 +3,23 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --reduced --steps 100
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch yi-6b --reduced --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch zamba2-2.7b --reduced --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch minicpm3-4b --reduced --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch mixtral-8x22b --reduced --steps 20
 
 The counterpart of ``python -m repro.launch.train``, with its flags and
 defaults plus ``--device`` (default ``cuda``; without a card and without
-``--device cpu`` it exits with an error). It trains one of the attention
-family (gemma-2b, yi-6b, chameleon-34b, nemotron-4-340b, hubert-xlarge),
-the SSM family (mamba2-130m) or the hybrid (zamba2-2.7b) (``--reduced``
-for the smoke-size config) on synthetic Markov-ish tokens,
+``--device cpu`` it exits with an error). It trains any of the ten configs
+(``--reduced`` for the smoke-size config): the attention family (gemma-2b,
+yi-6b, chameleon-34b, nemotron-4-340b, hubert-xlarge), MLA (minicpm3-4b),
+MoE (grok-1-314b, mixtral-8x22b, whose router losses join the loss), the
+SSM family (mamba2-130m) or the hybrid (zamba2-2.7b), on synthetic
+Markov-ish tokens,
 logs every ``--log-every`` steps, checkpoints every ``--checkpoint-every``
 steps into ``--checkpoint-dir`` (resuming from its latest step when there
 is one; the files are the reference's, leaf for leaf), and prints ``loss
 first -> last (LEARNING)`` or ``(flat)``: it exits 0 only when the mean loss
-of the last 5 steps is below that of the first 5. The MoE and MLA configs
-raise ``NotImplementedError`` naming the ROADMAP item that ports them, and
-``--model-parallel`` above 1 raises (several cards: ROADMAP Queue 1 item 9).
+of the last 5 steps is below that of the first 5. ``--model-parallel``
+above 1 raises (several cards: ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 

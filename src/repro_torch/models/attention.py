@@ -1,6 +1,6 @@
-"""Attention: GQA / MQA (kv=1) / SWA with dense and rolling KV caches.
+"""Attention: GQA / MQA (kv=1) / SWA with dense and rolling KV caches, and MLA.
 
-The counterpart of ``repro.models.attention``, the GQA path:
+The counterpart of ``repro.models.attention``:
 
   * GQA with arbitrary q-per-kv grouping (yi, nemotron, chameleon, hubert
     with kv == heads), MQA as GQA with ``num_kv_heads == 1`` (gemma);
@@ -10,7 +10,18 @@ The counterpart of ``repro.models.attention``, the GQA path:
     two-level schedule (Q blocks outer, a running ``(m, l, acc)`` over KV
     blocks inner) for longer sequences, as the reference's ``_attend_flash``.
 
-MLA (``apply_mla``, ``MLACache``) is not here yet (ROADMAP Queue 1 item 11c).
+  * MLA (minicpm3): queries, keys and values rebuilt from a low-rank
+    latent; the cache (:class:`MLACache`) holds only ``ckv`` (kv_lora) and
+    the one shared RoPE key ``kpe`` (rope_dim) per token, un-normalised
+    (``kv_norm`` is applied on read). Three paths, as the reference's:
+    dense, *materialized* (K/V rebuilt once, then the flash schedule with
+    ``dh = dn + dr`` and ``dv``; for Lq above the Q chunk) and *absorbed*
+    (``w_uk`` folded into the query, attention in the latent space; decode
+    against a long cache). The absorbed path is MQA in the latent space:
+    one KV head whose key is ``[ckv_n | kpe]`` and whose value is
+    ``ckv_n``, through the same flash schedule. The reference adds two
+    float32 score products there; one product over the concatenated width
+    sums the same terms in another order, inside float32 rounding.
 
 Attention is computed in plain PyTorch matmuls, as the reference computes it
 in einsums; no library attention kernel is called. The score and value
@@ -43,11 +54,14 @@ from repro_torch.models.module import desc, fan_in_desc
 __all__ = [
     "NEG_INF",
     "KVCache",
+    "MLACache",
     "init_kv_cache",
+    "init_mla_cache",
     "desc_attention",
     "attention_mask",
     "rolling_slot_positions",
     "apply_attention",
+    "apply_mla",
 ]
 
 # ---------------------------------------------------------------------------
@@ -90,17 +104,59 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class MLACache:
+    """Latent cache: per token only kv_lora + rope_dim values.
+
+    ``ckv``: [B, S, kv_lora] (before ``kv_norm``), ``kpe``: [B, S, rope_dim]
+    (after RoPE); slot i holds position i. A stack of caches has a leading
+    layer dim on every field.
+    """
+
+    ckv: torch.Tensor
+    kpe: torch.Tensor
+    next_pos: torch.Tensor  # [] int32: tokens cached so far
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype | None = None,
+                   device: str | torch.device = "cpu") -> MLACache:
+    """A zero latent cache of ``max_len`` slots."""
+    dt = dtype or cfg.dtype("act")
+    return MLACache(
+        ckv=torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dt, device=device),
+        kpe=torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dt, device=device),
+        next_pos=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
 # ---------------------------------------------------------------------------
 # Descriptors
 # ---------------------------------------------------------------------------
 
 
 def desc_attention(cfg: ModelConfig) -> dict:
-    """Q, K, V, O projections (and the qk-norm scales) of one GQA layer."""
-    if cfg.attention == "mla":
-        raise NotImplementedError("MLA attention is ported with ROADMAP Queue 1 item 11c")
+    """Q, K, V, O projections (and the qk-norm scales) of one GQA layer, or the MLA layer's
+    down/up projections, latent norms and output."""
     pd = cfg.dtype("param")
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if cfg.attention == "mla":
+        r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        out = {
+            "w_dkv": fan_in_desc((D, r_kv), ("embed", "latent"), D, pd),
+            "w_kpe": fan_in_desc((D, dr), ("embed", "head_dim"), D, pd),
+            "kv_norm": desc((r_kv,), ("latent",), init="ones", dtype=pd),
+            "w_uk": fan_in_desc((r_kv, H, dn), ("latent", "q_heads", "head_dim"), r_kv, pd),
+            "w_uv": fan_in_desc((r_kv, H, dv), ("latent", "q_heads", "head_dim"), r_kv, pd),
+            "w_o": fan_in_desc((H, dv, D), ("q_heads", "head_dim", "embed"), H * dv, pd),
+        }
+        if r_q > 0:
+            out["w_dq"] = fan_in_desc((D, r_q), ("embed", "latent"), D, pd)
+            out["q_norm"] = desc((r_q,), ("latent",), init="ones", dtype=pd)
+            out["w_uq"] = fan_in_desc((r_q, H, dn + dr), ("latent", "q_heads", "head_dim"), r_q, pd)
+        else:
+            out["w_q"] = fan_in_desc((D, H, dn + dr), ("embed", "q_heads", "head_dim"), D, pd)
+        return out
     out = {
         "w_q": fan_in_desc((D, H, hd), ("embed", "q_heads", "head_dim"), D, pd),
         "w_k": fan_in_desc((D, KV, hd), ("embed", "kv_heads", "head_dim"), D, pd),
@@ -349,10 +405,7 @@ def _write_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
             k, v, positions = k[:, -W:], v[:, -W:], positions[-W:]
         slots = (positions % W).long()
     else:
-        if L > W:
-            raise ValueError(f"{L} tokens do not fit a cache of {W} slots")
-        start = positions[0].long().clamp(0, W - L)
-        slots = start + torch.arange(L, device=k.device)
+        slots = _full_slots(positions, L, W)
     new = KVCache(
         k=cache.k.index_copy(1, slots, k.to(cache.k.dtype)),
         v=cache.v.index_copy(1, slots, v.to(cache.v.dtype)),
@@ -361,8 +414,21 @@ def _write_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
     )
     if cache.rolling:
         return new, rolling_slot_positions(new.next_pos, W)
-    slot = torch.arange(W, dtype=torch.int32, device=k.device)
-    return new, torch.where(slot < new.next_pos, slot, -1).to(torch.int32)
+    return new, _full_kv_pos(new.next_pos, W)
+
+
+def _full_slots(positions: torch.Tensor, L: int, W: int) -> torch.Tensor:
+    """The L consecutive slots of a full cache from ``positions[0]``, clamped into ``[0, W - L]``
+    as ``jax.lax.dynamic_update_slice`` clamps its start."""
+    if L > W:
+        raise ValueError(f"{L} tokens do not fit a cache of {W} slots")
+    return positions[0].long().clamp(0, W - L) + torch.arange(L, device=positions.device)
+
+
+def _full_kv_pos(next_pos: torch.Tensor, W: int) -> torch.Tensor:
+    """Position of each full-cache slot: i below ``next_pos``, else -1."""
+    slot = torch.arange(W, dtype=torch.int32, device=next_pos.device)
+    return torch.where(slot < next_pos, slot, -1).to(torch.int32)
 
 
 def apply_attention(
@@ -395,3 +461,172 @@ def apply_attention(
         out = _attend(q, new_cache.k, new_cache.v, positions, kv_pos, cfg, scale)
     y = out.reshape(B, L, H * hd) @ params["w_o"].to(ad).reshape(H * hd, D)
     return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (minicpm3 / deepseek-style latent attention)
+# ---------------------------------------------------------------------------
+
+
+def _mla_qkv(params: dict, x: torch.Tensor, positions: torch.Tensor,
+             cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Queries and the new latent entries of x: (q_nope [B,L,H,dn], q_pe [B,L,H,dr], ckv [B,L,r_kv], kpe [B,L,dr]).
+
+    RoPE turns ``q_pe`` and the one shared key head ``kpe``; ``ckv`` is not normalised here.
+    """
+    ad = cfg.dtype("act")
+    B, L, D = x.shape
+    H, dn, dr = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    if cfg.q_lora_rank > 0:
+        cq = rms_norm(x @ params["w_dq"].to(ad), params["q_norm"])
+        q = cq @ params["w_uq"].to(ad).reshape(cfg.q_lora_rank, H * (dn + dr))
+    else:
+        q = x @ params["w_q"].to(ad).reshape(D, H * (dn + dr))
+    q = q.view(B, L, H, dn + dr)
+    q_nope, q_pe = q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    ckv = x @ params["w_dkv"].to(ad)
+    kpe = apply_rope((x @ params["w_kpe"].to(ad))[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_pe, ckv, kpe
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+
+
+def _mla_up(params: dict, ckv_n: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-head keys and values rebuilt from the normalised latent: (k_nope [B,S,H,dn], v [B,S,H,dv])."""
+    ad = cfg.dtype("act")
+    B, S, r = ckv_n.shape
+    H = cfg.num_heads
+    k_nope = (ckv_n @ params["w_uk"].to(ad).reshape(r, H * cfg.qk_nope_dim)).view(B, S, H, cfg.qk_nope_dim)
+    v = (ckv_n @ params["w_uv"].to(ad).reshape(r, H * cfg.v_head_dim)).view(B, S, H, cfg.v_head_dim)
+    return k_nope, v
+
+
+def _mla_out(params: dict, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """[B, L, H, dv] -> [B, L, D] through ``w_o``."""
+    B, L, H, dv = out.shape
+    return out.reshape(B, L, H * dv) @ params["w_o"].to(cfg.dtype("act")).reshape(H * dv, -1)
+
+
+def _heads_first(t: torch.Tensor) -> torch.Tensor:
+    """[B, S, H, d] -> [B*H, S, d]."""
+    B, S, H, d = t.shape
+    return t.permute(0, 2, 1, 3).reshape(B * H, S, d)
+
+
+def _mla_attend_dense(
+    params: dict,
+    q_nope: torch.Tensor,  # [B, Lq, H, dn]
+    q_pe: torch.Tensor,  # [B, Lq, H, dr]
+    ckv: torch.Tensor,  # [B, S, r_kv] (normalised here)
+    kpe: torch.Tensor,  # [B, S, dr]
+    mask: torch.Tensor,  # [Lq, S]
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """K/V rebuilt per head; the nope and rope scores as two float32 products, as the reference's."""
+    ad = cfg.dtype("act")
+    B, Lq, H, _ = q_nope.shape
+    S = ckv.shape[1]
+    k_nope, v = _mla_up(params, rms_norm(ckv, params["kv_norm"]), cfg)
+    s_nope = _bmm_f32(_heads_first(q_nope), _heads_first(k_nope).mT).view(B, H, Lq, S)
+    s_pe = _bmm_f32(q_pe.permute(0, 2, 1, 3).reshape(B, H * Lq, -1), kpe.mT).view(B, H, Lq, S)
+    logits = torch.where(mask, (s_nope + s_pe) * _mla_scale(cfg), NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = _bmm_f32(probs.reshape(B * H, Lq, S), _heads_first(v)).view(B, H, Lq, -1)
+    return _mla_out(params, out.transpose(1, 2).to(ad), cfg)
+
+
+def _mla_attend_flash(
+    params: dict,
+    q_nope: torch.Tensor,  # [B, Lq, H, dn]
+    q_pe: torch.Tensor,  # [B, Lq, H, dr]
+    ckv: torch.Tensor,  # [B, S, r_kv]
+    kpe: torch.Tensor,  # [B, S, dr]
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """Chunked MLA with *matrix absorption*: ``q_eff = q_nope · w_uk`` (rounded to the activation
+    dtype, as the reference's einsum), attention in the latent space as MQA over one KV head (key
+    ``[ckv_n | kpe]``, value ``ckv_n``) through the flash schedule, then ``w_uv`` applied once to the
+    latent output. Nothing per head is rebuilt from the cache: the decode path."""
+    ad = cfg.dtype("act")
+    B, Lq, H, dn = q_nope.shape
+    r = ckv.shape[-1]
+    ckv_n = rms_norm(ckv, params["kv_norm"])
+    w_uk = params["w_uk"].to(ad)  # [r, H, dn]
+    q_eff = torch.bmm(q_nope.permute(2, 0, 1, 3).reshape(H, B * Lq, dn), w_uk.permute(1, 2, 0))  # [H, B*Lq, r]
+    q = torch.cat([q_eff.view(H, B, Lq, r).permute(1, 2, 0, 3), q_pe], dim=-1)  # [B, Lq, H, r + dr]
+    k = torch.cat([ckv_n, kpe], dim=-1)[:, :, None, :]  # [B, S, 1, r + dr]
+    o_latent = _attend_flash(q, k, ckv_n[:, :, None, :], q_pos, kv_pos, cfg.causal, cfg.sliding_window,
+                             _mla_scale(cfg), cfg.attn_q_chunk, cfg.attn_kv_chunk)  # [B, Lq, H, r]
+    w_uv = params["w_uv"].to(ad)  # [r, H, dv]
+    out = torch.bmm(o_latent.permute(2, 0, 1, 3).reshape(H, B * Lq, r), w_uv.permute(1, 0, 2))  # [H, B*Lq, dv]
+    return _mla_out(params, out.view(H, B, Lq, -1).permute(1, 2, 0, 3), cfg)
+
+
+def _mla_attend_materialized(
+    params: dict,
+    q_nope: torch.Tensor,  # [B, Lq, H, dn]
+    q_pe: torch.Tensor,  # [B, Lq, H, dr]
+    ckv: torch.Tensor,  # [B, S, r_kv]
+    kpe: torch.Tensor,  # [B, S, dr]
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """Long-Lq (prefill / training) path: rebuild per-head K/V once and run the standard flash
+    schedule with ``dh = dn + dr`` (the shared ``kpe`` broadcast to every head) and ``dv``."""
+    ad = cfg.dtype("act")
+    H = q_nope.shape[2]
+    k_nope, v = _mla_up(params, rms_norm(ckv, params["kv_norm"]), cfg)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, kpe[:, :, None, :].expand(-1, -1, H, -1)], dim=-1)
+    out = _attend_flash(q, k, v, q_pos, kv_pos, cfg.causal, cfg.sliding_window, _mla_scale(cfg),
+                        cfg.attn_q_chunk, cfg.attn_kv_chunk, cfg.flash_q_parallel)
+    return _mla_out(params, out.to(ad), cfg)
+
+
+def _mla_attend(
+    params: dict,
+    q_nope: torch.Tensor,
+    q_pe: torch.Tensor,
+    ckv: torch.Tensor,
+    kpe: torch.Tensor,
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """Dispatch: dense for short (Lq, S); materialized when Lq passes the Q chunk; else absorbed flash."""
+    Lq, S = q_nope.shape[1], ckv.shape[1]
+    if Lq <= cfg.attn_q_chunk and S <= cfg.attn_kv_chunk:
+        mask = attention_mask(q_pos, kv_pos, cfg.causal, cfg.sliding_window)
+        return _mla_attend_dense(params, q_nope, q_pe, ckv, kpe, mask, cfg)
+    if Lq > cfg.attn_q_chunk:
+        return _mla_attend_materialized(params, q_nope, q_pe, ckv, kpe, q_pos, kv_pos, cfg)
+    return _mla_attend_flash(params, q_nope, q_pe, ckv, kpe, q_pos, kv_pos, cfg)
+
+
+def apply_mla(
+    params: dict,
+    x: torch.Tensor,  # [B, L, D]
+    positions: torch.Tensor,  # [L] int32 absolute positions
+    cfg: ModelConfig,
+    cache: Optional[MLACache] = None,
+) -> tuple[torch.Tensor, Optional[MLACache]]:
+    """MLA attention. With ``cache``, writes the L new latent entries (from ``positions[0]``, the
+    start clamped as the full KV cache's) then attends over the cache; without, self-attends over x."""
+    x = x.to(cfg.dtype("act"))
+    q_nope, q_pe, ckv, kpe = _mla_qkv(params, x, positions, cfg)
+    if cache is None:
+        return _mla_attend(params, q_nope, q_pe, ckv, kpe, positions, positions, cfg), None
+    S = cache.ckv.shape[1]
+    slots = _full_slots(positions, x.shape[1], S)
+    new = MLACache(
+        ckv=cache.ckv.index_copy(1, slots, ckv.to(cache.ckv.dtype)),
+        kpe=cache.kpe.index_copy(1, slots, kpe.to(cache.kpe.dtype)),
+        next_pos=positions[-1] + 1,
+    )
+    y = _mla_attend(params, q_nope, q_pe, new.ckv, new.kpe, positions, _full_kv_pos(new.next_pos, S), cfg)
+    return y, new

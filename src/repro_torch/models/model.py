@@ -4,18 +4,18 @@ The counterpart of ``repro.models.model``. The same :class:`LMModel` drives
 training (``forward``, or ``hidden`` + ``logits`` for the chunked loss) and
 inference (``prefill`` / ``decode``). Params and caches are passed
 explicitly; the model holds only its config. A cache is the stack's cache
-tree: a :class:`KVCache` for the attention family, an :class:`SSMState`
-for the SSM stack, a :class:`HybridCache` for the hybrid. What the
-reference adds for meshes (``specs``, ``shardings``, ``cache_specs``,
-``cache_shardings`` and the cache axes ``_kv_axes``, ``_mla_axes``,
-``_ssm_axes``, ``_cache_axes``) waits for several cards (ROADMAP Queue 1
-item 9a); ``abstract_cache`` waits for the dry run (item 11e). ``abstract``
-gives the param tree on the ``meta`` device, with no allocation.
+tree: a :class:`KVCache` for the attention family (an :class:`MLACache`
+for MLA), an :class:`SSMState` for the SSM stack, a :class:`HybridCache`
+for the hybrid. What the reference adds for meshes (``specs``,
+``shardings``, ``cache_specs``, ``cache_shardings`` and the cache axes
+``_kv_axes``, ``_mla_axes``, ``_ssm_axes``, ``_cache_axes``) waits for
+several cards (ROADMAP Queue 1 item 9a); ``abstract_cache`` waits for the
+dry run (item 11e). ``abstract`` gives the param tree on the ``meta``
+device, with no allocation.
 
-``build_model`` builds the attention family (dense, vlm, encoder), the SSM
-family (mamba2-130m) and the hybrid (zamba2-2.7b), and raises
-``NotImplementedError`` for MoE and MLA configs, naming the ROADMAP item
-that ports them.
+``build_model`` builds every config: the attention family (dense, vlm,
+encoder, MLA, MoE), the SSM family (mamba2-130m) and the hybrid
+(zamba2-2.7b).
 """
 from __future__ import annotations
 
@@ -152,14 +152,6 @@ class LMModel:
 
 
 def build_model(cfg: ModelConfig) -> LMModel:
-    """The model of ``cfg``.
-
-    Raises:
-        NotImplementedError: ``cfg`` is an MoE or MLA config (the message
-            names the ROADMAP item that ports it).
-    """
-    why = transformer.unported(cfg)
-    if why is not None:
-        raise NotImplementedError(why)
+    """The model of ``cfg``."""
     return LMModel(cfg=cfg)
 

@@ -13,8 +13,11 @@ reference's ``lax.scan``), each under the remat policy ``cfg.remat``:
 
 Families:
 
-  * dense / vlm / encoder (gemma-2b, yi-6b, chameleon-34b, nemotron-4-340b,
-    hubert-xlarge): pre-norm attention + MLP blocks. With
+  * dense / vlm / moe / encoder (gemma-2b, yi-6b, chameleon-34b,
+    nemotron-4-340b, hubert-xlarge, minicpm3-4b, grok-1-314b,
+    mixtral-8x22b): pre-norm attention (GQA/MQA/SWA, or MLA for minicpm3)
+    + a pre-norm MLP, or MoE for grok and mixtral (its metrics, meaned
+    over layers, are the stack's; other layers give zeros). With
     ``cfg.remat_group = g > 1`` (and no cache) each group of g layers is one
     checkpoint region whose layers are checkpointed again inside it, so the
     group's recompute does not keep every layer's activations at once;
@@ -25,13 +28,15 @@ Families:
     application with its own KV cache. A segment is one checkpoint region
     whose mamba2 layers are checkpointed again, as the reference's.
 
-MoE (ROADMAP Queue 1 item 11b) and MLA (item 11c) are not here yet: they
-raise ``NotImplementedError``.
-
 Decode caches are dataclasses whose fields carry leading layer dims, as the
 reference's stacked cache pytrees: one :class:`KVCache` ``[L, ...]`` for the
-attention family, one :class:`SSMState` ``[L, ...]`` for the SSM stack, and
-a :class:`HybridCache` (``ssm`` ``[A, k, ...]``, ``attn`` ``[A, ...]``).
+attention family (an :class:`MLACache` for MLA), one :class:`SSMState`
+``[L, ...]`` for the SSM stack, and a :class:`HybridCache` (``ssm``
+``[A, k, ...]``, ``attn`` ``[A, ...]``).
+
+Under ``remat="block"`` the expert products are batched (``bmm`` over the
+experts), so they are recomputed, not saved, as the reference's
+``dots_with_no_batch_dims_saveable`` treats its expert einsums.
 """
 from __future__ import annotations
 
@@ -42,30 +47,24 @@ from typing import Any, Callable, Optional
 import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
-from repro_torch.models.attention import KVCache, apply_attention, desc_attention, init_kv_cache
+from repro_torch.models.attention import (
+    KVCache,
+    MLACache,
+    apply_attention,
+    apply_mla,
+    desc_attention,
+    init_kv_cache,
+    init_mla_cache,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_mlp, apply_norm, desc_mlp, desc_norm
 from repro_torch.models.mamba2 import SSMState, apply_mamba2, desc_mamba2, init_ssm_state
+from repro_torch.models.moe import apply_moe, desc_moe
 from repro_torch.models.module import stacked
 
 Tree = Any
 
 METRIC_NAMES = ("aux_loss", "router_z", "drop_fraction")
-
-
-def unported(cfg: ModelConfig) -> Optional[str]:
-    """Why ``cfg`` cannot build a model here yet (the ROADMAP item that ports it), or ``None``."""
-    if cfg.num_experts:
-        return f"{cfg.name}: MoE layers are ported with ROADMAP Queue 1 item 11b"
-    if cfg.attention == "mla":
-        return f"{cfg.name}: MLA attention is ported with ROADMAP Queue 1 item 11c"
-    return None
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    why = unported(cfg)
-    if why is not None:
-        raise NotImplementedError(why)
 
 
 def zero_metrics(device: torch.device | str = "cpu") -> dict:
@@ -80,10 +79,14 @@ def zero_metrics(device: torch.device | str = "cpu") -> dict:
 
 def desc_layer(cfg: ModelConfig) -> dict:
     """Descriptor tree for ONE layer of the homogeneous stack."""
-    _require_ported(cfg)
     if cfg.family in ("ssm", "hybrid"):
         return {"ln": desc_norm(cfg), "mixer": desc_mamba2(cfg)}
-    return desc_shared_block(cfg)  # the attention family's layer is the same pre-norm attention + MLP block
+    out = {"ln_attn": desc_norm(cfg), "attn": desc_attention(cfg), "ln_mlp": desc_norm(cfg)}
+    if cfg.num_experts:
+        out["moe"] = desc_moe(cfg)
+    else:
+        out["mlp"] = desc_mlp(cfg)
+    return out
 
 
 def desc_shared_block(cfg: ModelConfig) -> dict:
@@ -106,20 +109,27 @@ def desc_stack(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _attn_fn(cfg: ModelConfig) -> Callable:
+    return apply_mla if cfg.attention == "mla" else apply_attention
+
+
 def apply_attn_layer(
     params: dict,
     x: torch.Tensor,
     positions: torch.Tensor,
     cfg: ModelConfig,
-    cache: Optional[KVCache],
-) -> tuple[torch.Tensor, Optional[KVCache], dict]:
-    """Pre-norm attention + MLP block. Returns (x, cache', moe_metrics)."""
+    cache: Optional[KVCache | MLACache],
+) -> tuple[torch.Tensor, Optional[KVCache | MLACache], dict]:
+    """Pre-norm attention + MLP/MoE block. Returns (x, cache', moe_metrics)."""
     h = apply_norm(params["ln_attn"], x, cfg)
-    a, new_cache = apply_attention(params["attn"], h, positions, cfg, cache)
+    a, new_cache = _attn_fn(cfg)(params["attn"], h, positions, cfg, cache)
     x = x + a
     h = apply_norm(params["ln_mlp"], x, cfg)
-    x = x + apply_mlp(params["mlp"], h, cfg)
-    return x, new_cache, zero_metrics(x.device)
+    if cfg.num_experts:
+        m, metrics = apply_moe(params["moe"], h, cfg)
+    else:
+        m, metrics = apply_mlp(params["mlp"], h, cfg), zero_metrics(x.device)
+    return x + m, new_cache, metrics
 
 
 def apply_ssm_layer(
@@ -205,8 +215,8 @@ def _apply_attn_stack(
     x: torch.Tensor,
     positions: torch.Tensor,
     cfg: ModelConfig,
-    caches: Optional[KVCache],
-) -> tuple[torch.Tensor, Optional[KVCache], dict]:
+    caches: Optional[KVCache | MLACache],
+) -> tuple[torch.Tensor, Optional[KVCache | MLACache], dict]:
     L = cfg.num_layers
     layers = _unstack(params["layers"], L)
 
@@ -240,7 +250,7 @@ def _apply_attn_stack(
             mets.append(m)
         return x, None, _mean_metrics(mets)
 
-    def cached(p: dict, x: torch.Tensor, cache: KVCache) -> tuple[torch.Tensor, KVCache, dict]:
+    def cached(p: dict, x: torch.Tensor, cache: Tree) -> tuple[torch.Tensor, Tree, dict]:
         return apply_attn_layer(p, x, positions, cfg, cache)
 
     step = _remat(cached, cfg)
@@ -358,11 +368,7 @@ def apply_stack(
     stacks, ``return_state=True`` without caches builds the decode state
     from the parallel form (the hybrid then returns ``None``: it has no KV
     cache to fill, as the reference's). The attention stack has no such state.
-
-    Raises:
-        NotImplementedError: ``cfg`` is an MoE or MLA config.
     """
-    _require_ported(cfg)
     if cfg.family == "ssm":
         want_state = caches is not None or return_state
         x, new_states = _apply_ssm_stack(params, x, cfg, caches, want_state)
@@ -377,7 +383,6 @@ def apply_stack(
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device: str | torch.device = "cpu") -> Optional[Tree]:
     """Zero-initialized stacked decode caches for the whole stack (``None`` for an encoder)."""
-    _require_ported(cfg)
     if cfg.is_encoder:
         return None
     if cfg.family == "ssm":
@@ -386,4 +391,6 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
         A, k = _segments(cfg)
         ssm = _stack([_stack([init_ssm_state(cfg, batch, device)] * k)] * A)
         return HybridCache(ssm=ssm, attn=_stack([init_kv_cache(cfg, batch, max_len, device=device)] * A))
+    if cfg.attention == "mla":
+        return _stack([init_mla_cache(cfg, batch, max_len, device=device)] * cfg.num_layers)
     return _stack([init_kv_cache(cfg, batch, max_len, device=device)] * cfg.num_layers)

@@ -5,8 +5,8 @@ samples greedily, or from ``softmax(logits / temperature)`` with an
 explicit ``torch.Generator`` (the reference's key), and returns the sampled
 token, so a serving loop is a host loop over this function. The steps run
 without autograd and read nothing back to the host. A cache is whatever
-tree ``LMModel.init_cache`` gives: a ``KVCache``, an ``SSMState`` or a
-``HybridCache``.
+tree ``LMModel.init_cache`` gives: a ``KVCache``, an ``MLACache``, an
+``SSMState`` or a ``HybridCache``.
 """
 from __future__ import annotations
 

@@ -7,7 +7,10 @@ result: the update writes params and moments in place (the step returns
 the same tensors), and it runs over the leading (layer-stack) dim in
 chunks, so the fp32 temporaries stay one chunk big for every leaf (the
 reference chunks only leaves whose leading dim divides ``scan_chunks``).
-The update is elementwise, so chunking changes no value.
+A chunk of more than ``_PIECE`` elements (a layer of mixtral's expert
+bank holds 805 M) is cut into flat pieces of ``_PIECE``, and the global
+norm sums a leaf in such pieces too, so no fp32 copy of a whole bf16 leaf
+is made. The update is elementwise, so chunking changes no value.
 
 Nothing here reads a tensor back to the host: the step count, the
 learning rate and the clip scale stay on the device.
@@ -21,6 +24,9 @@ from typing import Any, Callable, Iterator, Optional
 import torch
 
 Tree = Any
+
+# the most elements one fp32 temporary of the update or of the global norm holds (256 MB)
+_PIECE = 1 << 26
 
 
 def tree_leaves(tree: Tree) -> list[torch.Tensor]:
@@ -60,17 +66,20 @@ def warmup_cosine(peak: float, warmup: int, total: int, floor: float = 0.1) -> C
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32."""
-    sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    """sqrt of the sum of squares of every leaf, in fp32 (each leaf ``_PIECE`` elements at a time)."""
+    sums = [torch.sum(torch.square(piece.float())) for x in tree_leaves(tree)
+            for piece in x.reshape(-1).split(_PIECE)]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
 def _chunks(x: torch.Tensor, rows: int) -> Iterator[torch.Tensor]:
-    """Views of ``x``, ``rows`` of its leading dim at a time (the whole of a 0- or 1-dim leaf)."""
+    """Views of ``x``, ``rows`` of its leading dim at a time (the whole of a 0- or 1-dim leaf); a
+    chunk of more than ``_PIECE`` elements goes as flat pieces of ``_PIECE`` (``x`` contiguous)."""
     if x.ndim < 2:
         yield x
         return
-    yield from x.split(rows, dim=0)
+    for chunk in x.split(rows, dim=0):
+        yield from (chunk.view(-1).split(_PIECE) if chunk.numel() > _PIECE else (chunk,))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +128,7 @@ class AdamW:
 
         for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.mu), tree_leaves(state.nu),
                               tree_leaves(params)):
+            g = g.contiguous()
             decay = bool(self.weight_decay) and p.ndim >= 2  # none on norms/biases
             rows = max(1, -(-p.shape[0] // self.scan_chunks)) if p.ndim else 1
             for gc, mc, vc, pc in zip(_chunks(g, rows), _chunks(m, rows), _chunks(v, rows), _chunks(p, rows)):

@@ -573,7 +573,8 @@ def test_fig5_smoke_on_the_card_keeps_ring_async_bit_for_bit(cuda, tmp_path):
     assert gram_kernel.FUSED_LAUNCHES > before  # the ring steps ran the fused kernel
 
 
-LM_FAMILY = ("gemma-2b", "yi-6b", "chameleon-34b", "nemotron-4-340b", "hubert-xlarge", "mamba2-130m", "zamba2-2.7b")
+LM_FAMILY = ("gemma-2b", "yi-6b", "chameleon-34b", "nemotron-4-340b", "hubert-xlarge", "mamba2-130m", "zamba2-2.7b",
+             "minicpm3-4b", "mixtral-8x22b", "grok-1-314b")
 
 
 def _lm_on(tree, device):
@@ -585,7 +586,7 @@ def _lm_on(tree, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", LM_FAMILY)
 def test_reduced_lm_on_the_card_matches_the_cpu(cuda, arch):
-    """Each reduced LM config (the attention family, mamba2, zamba2), f32 activations: the card's forward
+    """Each reduced LM config (the attention family, MLA, MoE, mamba2, zamba2), f32 activations: the card's forward
     (dense and flash paths) and one train step's loss and grad norm within 1e-4 of the CPU's, from the
     same params and batch; the init on each device agrees to float32 rounding (one bf16 step for bf16
     params)."""

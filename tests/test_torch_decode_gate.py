@@ -4,15 +4,28 @@ The gate (``chip_smoke.decode_gate`` and ``check_decode_gate``) compares a
 prefill plus one-token decode steps against one pass over the whole
 sequence: every cache field per layer, and the stack's output minus each
 decoded position's own embedding. Here it runs on reduced gemma-2b,
-zamba2-2.7b and mamba2-130m on the CPU, on the real code (it must pass) and
-with one fault injected by ``monkeypatch`` (it must raise):
+zamba2-2.7b, mamba2-130m, minicpm3-4b and mixtral-8x22b on the CPU, on the
+real code (it must pass) and with one fault injected by ``monkeypatch`` (it
+must raise):
 
 * ``attn_zeroed``: the decode step's attention output is zero;
 * ``attn_own_slot``: the decode step attends only to its own token, so the
   cache is ignored (the cache itself is still written);
 * ``S_reset``: the SSD state is zero at the start of every decode step;
 * ``conv_unshifted``: the decode step hands back the conv window it was
-  given, so the window never takes the new token.
+  given, so the window never takes the new token;
+* ``mla_no_kv_norm``: MLA's absorbed path (each decode step's: minicpm3
+  runs with Q and KV chunks of 16, so its 40-token prefill and the one-pass
+  runs take the materialized path, as 4,096 tokens do at full width) reads
+  the latent without ``kv_norm``;
+* ``mla_no_rope_score``: the absorbed path drops the ``q_pe · kpe`` score;
+* ``moe_top1``: a decode step routes each token to its top-1 expert only;
+* ``swa_slot_ahead``: mixtral's decode step writes its key and value one
+  rolling slot ahead, at (p + 1) % W, in the read across the wrap (window
+  32, a 32-token prompt and 8 decode steps: ``decode_gate`` then gates the
+  residual against ``forward`` alone).
+
+Mixtral's gate runs at ``chip_smoke.gate_config``'s capacity factor.
 
 In float32 activations (``GATE_ACTIVATIONS``) every field is held to
 ``DECODE_CACHE_BAND`` and ``DECODE_RESIDUAL_BAND``. In bf16, the configs'
@@ -33,7 +46,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.models import mamba2, transformer
+from repro_torch.models import attention, mamba2, transformer
 from repro_torch.models.model import build_model
 from repro_torch.models.module import map_descs
 
@@ -43,6 +56,15 @@ chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
 
 P, T = 40, 8  # prompt (a whole 32-token SSD chunk and a partial one), teacher-forced steps
+# the gate's runs: config name -> (arch, replacements of its reduced config, prompt)
+RUNS = {
+    "gemma-2b": ("gemma-2b", {}, P),
+    "zamba2-2.7b": ("zamba2-2.7b", {}, P),
+    "mamba2-130m": ("mamba2-130m", {}, P),
+    "minicpm3-4b": ("minicpm3-4b", {"attn_q_chunk": 16, "attn_kv_chunk": 16}, P),
+    "mixtral-8x22b": ("mixtral-8x22b", {}, P),  # P + T = 48 within the window of 64: caches gated
+    "mixtral-8x22b-wrap": ("mixtral-8x22b", {"sliding_window": 32}, 32),  # P = W, decoded across the wrap
+}
 
 
 @pytest.fixture(autouse=True)
@@ -89,20 +111,65 @@ def _conv_unshifted(real):
     return transformer, "apply_mamba2", apply
 
 
+def _mla_no_kv_norm(real):
+    def attend(*args):
+        norm = attention.rms_norm
+        attention.rms_norm = lambda x, scale, eps=1e-6: x
+        try:
+            return real(*args)
+        finally:
+            attention.rms_norm = norm
+
+    return attention, "_mla_attend_flash", attend
+
+
+def _mla_no_rope_score(real):
+    def attend(params, q_nope, q_pe, *rest):
+        return real(params, q_nope, torch.zeros_like(q_pe), *rest)
+
+    return attention, "_mla_attend_flash", attend
+
+
+def _moe_top1(real):
+    def apply(params, x, cfg):
+        return real(params, x, cfg.replace(num_experts_per_tok=1) if x.shape[1] == 1 else cfg)
+
+    return transformer, "apply_moe", apply
+
+
+def _swa_slot_ahead(real):
+    def write(cache, k, v, positions):
+        if not (cache.rolling and k.shape[1] == 1):
+            return real(cache, k, v, positions)
+        new, _ = real(cache, k, v, positions + 1)  # the key at (p + 1) % W
+        new = dataclasses.replace(new, next_pos=positions[-1] + 1)
+        return new, attention.rolling_slot_positions(new.next_pos, cache.window)
+
+    return attention, "_write_cache", write
+
+
 FAULTS = {"attn_zeroed": _attn_zeroed, "attn_own_slot": _attn_own_slot, "S_reset": _S_reset,
-          "conv_unshifted": _conv_unshifted}
+          "conv_unshifted": _conv_unshifted, "mla_no_kv_norm": _mla_no_kv_norm,
+          "mla_no_rope_score": _mla_no_rope_score, "moe_top1": _moe_top1, "swa_slot_ahead": _swa_slot_ahead}
 REAL = {"attn_zeroed": transformer.apply_attention, "attn_own_slot": transformer.apply_attention,
-        "S_reset": mamba2.ssd_step, "conv_unshifted": transformer.apply_mamba2}
+        "S_reset": mamba2.ssd_step, "conv_unshifted": transformer.apply_mamba2,
+        "mla_no_kv_norm": attention._mla_attend_flash, "mla_no_rope_score": attention._mla_attend_flash,
+        "moe_top1": transformer.apply_moe, "swa_slot_ahead": attention._write_cache}
 ATTN_FAULTS, SSM_FAULTS = ("attn_zeroed", "attn_own_slot"), ("S_reset", "conv_unshifted")
 F32_CASES = ([("gemma-2b", f) for f in (None, *ATTN_FAULTS)]
              + [("zamba2-2.7b", f) for f in (None, *ATTN_FAULTS, *SSM_FAULTS)]
-             + [("mamba2-130m", f) for f in (None, *SSM_FAULTS)])
+             + [("mamba2-130m", f) for f in (None, *SSM_FAULTS)]
+             + [("minicpm3-4b", f) for f in (None, "mla_no_kv_norm", "mla_no_rope_score")]
+             + [("mixtral-8x22b", f) for f in (None, "moe_top1")]
+             + [("mixtral-8x22b-wrap", f) for f in (None, "swa_slot_ahead")])
 OWN_DTYPE_CASES = [(a, f) for a in ("zamba2-2.7b", "mamba2-130m") for f in (None, *SSM_FAULTS)]
 
 
-def _model_params_tokens(arch: str, activation_dtype: str):
-    """Reduced ``arch`` with f32 params drawn from a seeded numpy generator at each descriptor's scale."""
-    cfg = get_config(arch).reduced().replace(activation_dtype=activation_dtype)
+def _model_params_tokens(run: str, activation_dtype: str):
+    """The reduced config of ``run`` (``RUNS``) with params drawn from a seeded numpy generator at each
+    descriptor's scale, and P + T tokens."""
+    arch, kw, prompt = RUNS[run]
+    cfg = get_config(arch).reduced().replace(activation_dtype=activation_dtype, **kw)
     model = build_model(cfg)
     rng = np.random.default_rng(0)
 
@@ -111,18 +178,20 @@ def _model_params_tokens(arch: str, activation_dtype: str):
             return (torch.zeros if d.init == "zeros" else torch.ones)(d.shape, dtype=d.dtype)
         return torch.from_numpy((d.scale * rng.normal(size=d.shape)).astype(np.float32)).to(d.dtype)
 
-    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, P + T)).astype(np.int32)
-    return model, map_descs(leaf, model.descs()), torch.from_numpy(tokens)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, prompt + T)).astype(np.int32)
+    return model, map_descs(leaf, model.descs()), torch.from_numpy(tokens), prompt
 
 
-def _gate(monkeypatch, arch: str, fault, activation_dtype: str) -> dict:
-    model, params, tokens = _model_params_tokens(arch, activation_dtype)
+def _gate(monkeypatch, run: str, fault, activation_dtype: str) -> dict:
+    model, params, tokens, prompt = _model_params_tokens(run, activation_dtype)
     if fault is not None:
         monkeypatch.setattr(*FAULTS[fault](REAL[fault]))
-    gate = chip_smoke.decode_gate(torch, model, params, tokens, P)
-    print(json.dumps({"arch": arch, "fault": fault, "activation_dtype": activation_dtype,
+    gate = chip_smoke.decode_gate(torch, model, params, tokens, prompt)
+    print(json.dumps({"run": run, "fault": fault, "activation_dtype": activation_dtype,
                       "residual": gate["residual_rel_err"], "logits_record": gate["logits_rel_err_record"],
+                      "cache_gated": gate["cache_gated"], "capacity_factor": gate["capacity_factor"],
                       "cache": {k: v["worst"] for k, v in gate["cache_rel_err"].items()}}))
+    assert gate["cache_gated"] == (run != "mixtral-8x22b-wrap")
     return gate
 
 

@@ -10,8 +10,6 @@ relative to the largest value.
 """
 from __future__ import annotations
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -278,10 +276,3 @@ def test_full_cache_write_clamps_like_dynamic_update_slice():
     with pytest.raises(ValueError, match="do not fit"):
         attention.apply_attention(port_p, torch.from_numpy(x), torch.arange(6, dtype=torch.int32), pair[1],
                                   cache=attention.init_kv_cache(pair[1], 1, 4))
-
-
-def test_unported_attention_raises_naming_its_item():
-    cfg = get_config("minicpm3-4b").reduced()
-    with pytest.raises(NotImplementedError, match="11c"):
-        attention.desc_attention(cfg)
-    assert dataclasses.fields(attention.KVCache)[-1].name == "rolling"

@@ -8,7 +8,8 @@ teacher-forced decode against forward within 2e-3 (the band of
 ``tests/test_archs.py``); reduced gemma in bf16 within 5e-2 of the largest
 logit. ``AdamW.update`` on equal grads within 1e-6, two microbatches equal
 to one within 1e-5. Parameter counts of the full configs from descriptors
-(no allocation), the registry, and the configs that raise.
+(no allocation) and the registry. The MLA and MoE configs have their own
+files (``tests/test_torch_lm_mla.py``, ``tests/test_torch_lm_moe.py``).
 """
 from __future__ import annotations
 
@@ -38,7 +39,6 @@ from repro_torch.training.train import loss_and_grads
 
 FAMILY = ("gemma-2b", "yi-6b", "chameleon-34b", "nemotron-4-340b", "hubert-xlarge")
 DECODERS = tuple(a for a in FAMILY if a != "hubert-xlarge")
-UNPORTED = {"grok-1-314b": "11b", "mixtral-8x22b": "11b", "minicpm3-4b": "11c"}
 B, T = 2, 16
 
 
@@ -233,13 +233,6 @@ def test_full_config_param_counts_match_the_reference(arch):
     assert sum(t.numel() for t in abstract) == ref_model.num_params()
     if arch == "gemma-2b":
         assert model.num_params() == model.matmul_params() == 2_506_172_416
-
-
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_configs_raise_naming_their_item(arch):
-    for cfg in (get_config(arch), get_config(arch).reduced()):
-        with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
-            build_model(cfg)
 
 
 def test_registry_matches_the_reference():

@@ -6,8 +6,7 @@ ends with the uninterrupted run's state bit for bit; the reference's
 ``CheckpointManager`` restores a port checkpoint's ``TrainState`` and the
 port restores the reference's; ``examples_torch/lm_train.py --device cpu``
 runs; greedy generation gives the reference's tokens; the CLI refuses
-``--model-parallel > 1``, an unported config and (without a card) the
-default device.
+``--model-parallel > 1`` and (without a card) the default device.
 """
 from __future__ import annotations
 
@@ -149,8 +148,6 @@ def test_the_example_runs_on_the_cpu():
 
 @pytest.mark.parametrize("argv, error, match", [
     (SMALL + ["--model-parallel", "2"], NotImplementedError, "item 9"),
-    (["--device", "cpu", "--arch", "mixtral-8x22b", "--reduced"], NotImplementedError, "11b"),
-    (["--device", "cpu", "--arch", "minicpm3-4b", "--reduced"], NotImplementedError, "11c"),
     (["--arch", "yi-6b", "--reduced"], RuntimeError, "no CUDA device"),
 ])
 def test_the_cli_refuses_what_it_cannot_run(argv, error, match):
