@@ -139,12 +139,15 @@ Phases (any failure stops the run with a non-zero exit and no result line):
    through the dense and the flash path, one train step's loss and grad
    norm, each within 1e-4 (TF32 stays off); then at full width
    (``LM_FULL_WIDTH``: the reference's parameter count asserted, the
-   config's param dtype, bf16 activations, ``remat="full"``) gemma-2b,
-   zamba2-2.7b, mamba2-130m, minicpm3-4b (62 layers, MLA) and
+   config's param dtype, bf16 activations, ``remat="full"``) gemma-2b
+   (its depth cut to ``GEMMA2B_LAYERS`` = 9 of 18 layers), zamba2-2.7b
+   (``ZAMBA2_LAYERS`` = 18 of 54), mamba2-130m, minicpm3-4b (MLA,
+   ``MINICPM3_LAYERS`` = 8 of 62; the cuts keep the script well inside
+   its time) and
    mixtral-8x22b with its depth cut to ``MIXTRAL_LAYERS`` = 2 of 56 layers
    (5,410,781,184 params, bf16): ``lm_<name>_train``, one 4,096-token
-   sequence (train_4k with its global batch cut to 1), 8 steps (minicpm3:
-   ``MINICPM3_STEPS`` = 6) at lr 1e-4 on that batch: every loss finite and
+   sequence (train_4k with its global batch cut to 1), ``LM_STEPS`` = 4
+   steps at lr 1e-4 on that batch: every loss finite and
    the last below the first (for mixtral each step's ``drop_fraction``,
    ``aux_loss`` and ``router_z`` at the published capacity factor 1.25);
    step ms, tokens/s, model FLOPs per
@@ -165,7 +168,38 @@ Phases (any failure stops the run with a non-zero exit and no result line):
    greedy decode ms per token over 32 tokens and the cache's bytes.
    ``python3 chip_smoke.py --lm-only`` runs these phases alone and prints
    no result line;
-15. the ``kernels`` JSON line, the card line again, and last the ``ok`` line.
+15. the LM over a mesh of ranks that share the card (ROADMAP item 9a), with
+   the Gram counters reset before and read after (none may launch); each
+   rank is a child on ``cuda:0`` under ``gloo``:
+   ``lm_mesh_probe`` (``scripts/lm_mesh_probe.py``: the raw collectives
+   handed CUDA tensors, ``bfloat16`` too, and the port's own, which hand
+   them to ``gloo`` as they are; each must hold against its one-process
+   result); ``lm_mesh_reduced_parity``
+   (4 ranks on a ``(2, 2)`` mesh, the ten reduced configs in f32: one step
+   under ``TRAIN_RULES`` and under ``ZERO_RULES``, every updated param and
+   moment and the metrics, then a prefill under ``SERVE_RULES`` and 4
+   decode steps under ``DECODE_RULES``, logits and the gathered cache,
+   each within ``LM_MESH_BAND`` of the rank's own one-process run, and
+   every shard's shape its spec's); ``lm_mesh_gemma2b_train`` (gemma-2b at
+   full width on 2 ranks, one gang, ``(1, 2)`` tensor parallel at 4 of 18
+   layers then ``(2, 1)`` FSDP at 2 (``GEMMA_MESHES``):
+   one f32 step held to this process's one-process step (loss, grad norm,
+   each leaf's first moment summed, |summed| and weighted by its global
+   index), then ``GEMMA_MESH_STEPS`` = 2 bf16 steps
+   with step ms, tokens/s, stored bytes against one process, peak memory
+   and collective bytes and ms per step); ``lm_mesh_gemma2b_decode`` (on
+   ``(1, 2)``: ``decode_gate``'s decoded run with the KV cache split along
+   the sequence, its gathered cache and residual held to this process's
+   one-prefill cache and ``forward`` within ``DECODE_CACHE_BAND`` /
+   ``DECODE_RESIDUAL_BAND``; then prefill and decode timed in bf16);
+   ``lm_mesh_cli`` (``launch.train --model-parallel 2`` through
+   ``launch.multiproc``, mamba2-130m at full width, 10 steps, learning; its
+   checkpoint restored whole in this process and stepped once).
+   ``python3 chip_smoke.py --lm-mesh-only`` runs these alone and prints no
+   result line;
+16. the ``kernels`` JSON line, the card line again, and last the ``ok`` line.
+
+Each phase's start goes to stderr with the script's seconds so far.
 
 Tolerance of a kernel against its plain version: the plain version
 contracts in float64 (the correctly rounded sum), the kernel sums float32
@@ -220,6 +254,14 @@ FUSED_SHAPES = {
     "item_minus_one": (48, 16, 20, [(10, 32, (0, 3, 9), False)]),
     "multichunk": (64, 16, 16, [(8, 300, (), False)]),
 }
+
+
+T_START = time.perf_counter()
+
+
+def progress(label: str) -> None:
+    """The script's seconds so far and the phase it starts, on stderr: where a run stopped at its time limit was."""
+    print(f"[chip_smoke] {time.perf_counter() - T_START:.1f} s: {label}", file=sys.stderr, flush=True)
 
 
 def card_line() -> str:
@@ -2124,19 +2166,23 @@ def phase_examples(gram_kernel, tmp: Path, card: str) -> dict:
 LM_ARCHS = ("gemma-2b", "yi-6b", "chameleon-34b", "nemotron-4-340b", "hubert-xlarge", "mamba2-130m",
             "zamba2-2.7b", "minicpm3-4b", "mixtral-8x22b", "grok-1-314b")  # every config
 LM_PARITY_TOL = 1e-4  # card against the port's CPU run, f32 activations: logits, loss, grad norm
-LM_STEPS = 8
+LM_STEPS = 4
 # mixtral-8x22b's 56 layers (140.6 B params) do not fit one card: its first 2 layers, at full width, train
 # with bf16 params and grads and f32 AdamW moments, 12 bytes a param, 64.9 GB of state (PERF.md section 6)
 MIXTRAL_LAYERS = 2
-# minicpm3-4b's step takes ~10 s (its 62 layers launch ~284k kernels, PERF.md section 5): 6 steps keep the
-# whole script well inside its time
-MINICPM3_STEPS = 6
+# the script must end well inside its 1,200 s on a slower host too: at its published 62 layers
+# minicpm3-4b's step takes ~10 s (~284k kernel launches, PERF.md section 5) and reading its traced step's
+# kernels 62-74 s, so it runs at 8 layers; zamba2-2.7b at 18 of 54 (three of the shared block's nine uses),
+# gemma-2b at 9 of 18 (its traced step alone took 15-19 s at 18)
+GEMMA2B_LAYERS = 9
+MINICPM3_LAYERS = 8
+ZAMBA2_LAYERS = 18
 # (arch, phase label, the reference's build_model(get_config(arch) at that depth).num_params(), layers (None:
 # the published depth), training steps) run at full width
-LM_FULL_WIDTH = (("gemma-2b", "gemma2b", 2_506_172_416, None, LM_STEPS),
-                 ("zamba2-2.7b", "zamba2", 2_340_750_240, None, LM_STEPS),
+LM_FULL_WIDTH = (("gemma-2b", "gemma2b", 1_515_231_232, GEMMA2B_LAYERS, LM_STEPS),
+                 ("zamba2-2.7b", "zamba2", 904_773_600, ZAMBA2_LAYERS, LM_STEPS),
                  ("mamba2-130m", "mamba2", 129_001_920, None, LM_STEPS),
-                 ("minicpm3-4b", "minicpm3", 4_073_937_408, None, MINICPM3_STEPS),
+                 ("minicpm3-4b", "minicpm3", 689_490_432, MINICPM3_LAYERS, LM_STEPS),
                  ("mixtral-8x22b", "mixtral", 5_410_781_184, MIXTRAL_LAYERS, LM_STEPS))
 LM_SEQ = 4096  # train_4k's sequence; its global batch of 256 is cut to 1
 LM_LR = 1e-4  # constant: the reference's 3e-3 schedule is for the reduced configs
@@ -2543,9 +2589,11 @@ def run_lm_phases(torch, gram_kernel, card: str) -> dict:
         reset_counters(gram_kernel)
     t0 = time.perf_counter()
     seconds = {}
+    progress("lm_reduced_parity")
     phase_lm_reduced_parity(torch, card)
     seconds["lm_reduced_parity"] = time.perf_counter() - t0
     for arch, label, want_params, layers, steps in LM_FULL_WIDTH:
+        progress(f"lm_{label}")
         t1 = time.perf_counter()
         model, params = phase_lm_train(torch, arch, f"lm_{label}_train", want_params, layers, steps, card)
         phase_lm_decode(torch, model, params, f"lm_{label}_decode", card, get_config(arch).num_layers)
@@ -2557,6 +2605,544 @@ def run_lm_phases(torch, gram_kernel, card: str) -> dict:
                       "by_config": seconds, "gram_launches": launches}), flush=True)
     if any(launches.values()):
         raise AssertionError(f"the LM phases launched a Gram kernel: {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The LM over a mesh of ranks that share the card (ROADMAP item 9a)
+# ---------------------------------------------------------------------------
+
+LM_MESH_TIMEOUT_S = 300  # a gang's wall, and each collective's, at most: a hung rank fails the phase, not the script
+LM_MESH_BAND = 1e-4  # sharded against one process on the card, f32: max |Δ| over max(1, max |value|)
+LM_MESH_RANKS = 4  # lm_mesh_reduced_parity: a (2, 2) mesh
+# reduced-config overrides on the mesh: one config takes the flash schedule with its Q blocks over "model"
+LM_MESH_OVERRIDES = {"minicpm3-4b": {"attn_q_chunk": 4, "attn_kv_chunk": 8, "flash_q_parallel": True}}
+MESH_B, MESH_L = 4, 16  # the reduced train batch: rows over (data, model) under ZERO_RULES
+MESH_SB, MESH_P, MESH_T, MESH_S = 2, 6, 4, 16  # serve batch, prompt, decode steps, cache slots
+GEMMA_MESH_BATCH, GEMMA_MESH_SEQ = 2, 2048
+# (mesh, model-parallel, layers of the published 18), both in one gang. Every collective crosses the host: FSDP took
+# 46 s a step at 18 layers on the card (PERF.md section 6), tensor parallel 4.4 s; so that the script ends
+# well inside its time on a slower host, both run cut in depth
+GEMMA_MESHES = (("gemma_tp", 2, 4), ("gemma_fsdp", 1, 2))
+GEMMA_MESH_STEPS = 2  # bf16 steps after the f32 gate: the first warms up, the second is timed
+# the CLI at full width and depth: mamba2-130m, whose checkpoint (1.5 GB) one process reads back in seconds
+MESH_CLI_ARCH, MESH_CLI_STEPS = "mamba2-130m", 10
+
+
+def rel_err(torch, got, want) -> float:
+    """max |got - want| over max(1, max |want|), in float64 on the device."""
+    got, want = got.detach().double(), want.detach().double().to(got.device)
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} against {tuple(want.shape)}")
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max())) if want.numel() else 0.0
+
+
+def run_lm_gang(n: int, tmp: Path, what: str, card: str) -> tuple[list, float]:
+    """``chip_smoke.py --lm-mesh-worker`` as n ranks on this card; their JSON lines (echoed) and the wall seconds."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--lm-mesh-worker", str(tmp), what],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=child_env(REPRO_COORDINATOR=f"127.0.0.1:{port}", REPRO_NUM_PROCESSES=str(n),
+                                            REPRO_PROCESS_ID=str(r)))
+             for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=LM_MESH_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    lines = [json.loads(line) for out in outs for line in out.splitlines() if line.startswith("{")]
+    for line in lines:
+        print(json.dumps({**line, "card": card}), flush=True)
+    if any(p.returncode for p in procs):
+        dump = "\n".join(f"--- rank {r} ---\n{o[-4000:]}" for r, o in enumerate(outs))
+        raise AssertionError(f"the {what} gang failed {[p.returncode for p in procs]}:\n{dump}")
+    return lines, wall
+
+
+def lm_mesh_worker(tmp: Path, what: str) -> int:
+    """One rank of an lm_mesh gang: ``reduced``, or ``gemma``: mesh (1, 2), then mesh (2, 1) (``GEMMA_MESHES``)."""
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.hostdevices import init_multiprocess, shutdown
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_multiprocess(device="cuda", timeout_s=LM_MESH_TIMEOUT_S)
+    if what == "reduced":
+        mesh_reduced_rank(torch)
+    else:
+        for gang, _, _ in GEMMA_MESHES:
+            mesh_gemma_rank(torch, tmp, gang)
+    shutdown()
+    return 0
+
+
+def mesh_state_err(torch, mesh, specs, got, want) -> tuple[float, bool]:
+    """(the worst leaf's ``rel_err`` of the gathered shards against the whole tree, every shard's shape right)."""
+    from repro_torch.models.module import gather_full, local_shape
+    from repro_torch.training.optimizer import tree_leaves, tree_leaves_specs
+
+    worst, shapes = 0.0, True
+    for g, w, sp in zip(tree_leaves(got), tree_leaves(want), tree_leaves_specs(specs)):
+        shapes &= tuple(g.shape) == local_shape(tuple(w.shape), sp, mesh)
+        worst = max(worst, rel_err(torch, gather_full(g, sp, mesh), w))
+    return worst, shapes
+
+
+def mesh_reduced_rank(torch) -> None:
+    """Every reduced config (``LM_ARCHS``) in f32 on a (2, 2) mesh against this rank's own one-process run.
+
+    One train step under ``TRAIN_RULES`` and under ``ZERO_RULES`` from the
+    same params, second moments of at least 1 and batch (every updated
+    param and moment gathered, and the metrics); a prefill under
+    ``SERVE_RULES`` and ``MESH_T`` decode steps under ``DECODE_RULES`` (the
+    logits of each, the gathered cache). Rank 0 prints one line per config;
+    every rank raises past ``LM_MESH_BAND``.
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.launch.hostdevices import process_index
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import step_generator, synthetic_lm_batch
+    from repro_torch.models import collectives, module
+    from repro_torch.models.model import build_model
+    from repro_torch.training.lm_serve import gather_logits, make_prefill_step
+    from repro_torch.training.optimizer import AdamW, OptState, tree_map
+    from repro_torch.training.train import TrainState, jit_train_step, make_train_step
+
+    mesh = make_host_mesh(2)
+    for arch in LM_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).reduced().replace(activation_dtype="float32", param_dtype="float32",
+                                                 **LM_MESH_OVERRIDES.get(arch, {}))
+        model = build_model(cfg)
+        full = model.init(prng.key(0), "cuda")
+        gen = torch.Generator().manual_seed(1)
+        mu = tree_map(lambda p: torch.randn(p.shape, generator=gen).cuda(), full)
+        nu = tree_map(lambda p: 1 + torch.randn(p.shape, generator=gen).square().cuda(), full)
+        batch = synthetic_lm_batch(step_generator(0, 0), cfg, MESH_B, MESH_L, "cuda")
+        opt = AdamW()
+        one = lambda: torch.ones((), dtype=torch.int32, device="cuda")
+        clone = lambda tree: tree_map(lambda t: t.clone(), tree)
+        ref, ref_m = make_train_step(model, opt)(
+            TrainState(params=clone(full), opt=OptState(mu=clone(mu), nu=clone(nu), count=one()), step=one()), batch)
+        line = {"phase": "lm_mesh_reduced_parity", "arch": cfg.name, "mesh": mesh.shape, "band": LM_MESH_BAND}
+        for name in ("TRAIN_RULES", "ZERO_RULES"):
+            rules = getattr(module, name)
+            specs = model.specs(rules, mesh)
+            shard = lambda tree: shard_of_tree(torch, tree, specs, mesh)
+            state = TrainState(params=shard(full), opt=OptState(mu=shard(mu), nu=shard(nu), count=one()), step=one())
+            collectives.reset_stats()
+            state, m = jit_train_step(model, opt, mesh, rules, batch=MESH_B, seq=MESH_L)(state, batch)
+            stats = dict(collectives.STATS)
+            errs, shapes = {}, True
+            for part, got, want in (("params", state.params, ref.params), ("mu", state.opt.mu, ref.opt.mu),
+                                    ("nu", state.opt.nu, ref.opt.nu)):
+                errs[part], ok = mesh_state_err(torch, mesh, specs, got, want)
+                shapes &= ok
+            errs["metrics"] = max(rel_err(torch, m[k].float(), ref_m[k].float()) for k in ref_m)
+            line[name] = {"rel_err": errs, "shard_shapes_ok": shapes, "collectives": stats}
+        if not cfg.is_encoder:
+            tokens = torch.randint(0, cfg.vocab_size, (MESH_SB, MESH_P + MESH_T), generator=gen).to(torch.int32)
+            tokens = tokens.cuda()
+            with torch.no_grad():
+                cache = model.init_cache(MESH_SB, MESH_S, "cuda")
+                logits, cache = model.prefill(full, tokens[:, :MESH_P], cache)
+                want = [logits]
+                for t in range(MESH_T):
+                    pos = torch.tensor([MESH_P + t], dtype=torch.int32, device="cuda")
+                    logits, cache = model.decode(full, tokens[:, MESH_P + t : MESH_P + t + 1], cache, pos)
+                    want.append(logits)
+                local = shard_of_tree(torch, full, model.specs(module.SERVE_RULES, mesh), mesh)
+                sctx = model.ctx(module.SERVE_RULES, mesh).with_batch(MESH_SB, MESH_S)
+                dctx = model.ctx(module.DECODE_RULES, mesh).with_batch(MESH_SB, MESH_S)
+                lcache = model.init_cache(MESH_SB, MESH_S, "cuda", ctx=sctx)
+                logits, lcache = make_prefill_step(model, module.SERVE_RULES, mesh, MESH_S)(
+                    local, tokens[:, :MESH_P], lcache)
+                got = [logits]
+                for t in range(MESH_T):
+                    pos = torch.tensor([MESH_P + t], dtype=torch.int32, device="cuda")
+                    logits, lcache = model.decode(local, dctx.rows(tokens[:, MESH_P + t : MESH_P + t + 1]), lcache,
+                                                  pos, ctx=dctx)
+                    got.append(gather_logits(model, local, logits, dctx))
+                whole = model.gather_cache(lcache, sctx, MESH_SB, MESH_S)
+            line["serve"] = {
+                "logits_rel_err": max(rel_err(torch, g[..., :cfg.vocab_size], w[..., :cfg.vocab_size])
+                                      for g, w in zip(got, want)),
+                "cache_rel_err": max(rel_err(torch, a, b) for a, b in zip(
+                    cache_leaves(torch, whole).values(), cache_leaves(torch, cache).values())),
+                "cache_fields": sorted(cache_leaves(torch, whole)),
+                "local_cache_bytes": sum(t.nbytes for t in cache_leaves(torch, lcache).values()),
+                "whole_cache_bytes": sum(t.nbytes for t in cache_leaves(torch, cache).values())}
+        line["seconds"] = time.perf_counter() - t0
+        if process_index() == 0:
+            print(json.dumps(line), flush=True)
+        errs = [v for k in ("TRAIN_RULES", "ZERO_RULES") for v in line[k]["rel_err"].values()]
+        errs += [line["serve"][k] for k in ("logits_rel_err", "cache_rel_err")] if "serve" in line else []
+        if not all(math.isfinite(e) and e <= LM_MESH_BAND for e in errs) or not all(
+                line[k]["shard_shapes_ok"] for k in ("TRAIN_RULES", "ZERO_RULES")):
+            raise AssertionError(f"{cfg.name} on the mesh beyond {LM_MESH_BAND} or mis-shaped: {line}")
+        del full, mu, nu, ref, state
+        torch.cuda.empty_cache()
+
+
+def shard_of_tree(torch, tree, specs, mesh):
+    """This rank's shards of a whole param tree, as tensors of their own."""
+    from repro_torch.models.module import shard_of
+    from repro_torch.training.optimizer import tree_map
+
+    return tree_map(lambda t, sp: shard_of(t, sp, mesh).contiguous().clone(), tree, specs)
+
+
+def gemma_mesh_config(what: str):
+    """gemma-2b at full width, at the depth ``GEMMA_MESHES`` gives the gang ``what``, and its model-parallel."""
+    from repro_torch.configs import get_config
+
+    model_parallel, layers = next((mp, lay) for name, mp, lay in GEMMA_MESHES if name == what)
+    cfg = get_config("gemma-2b")
+    return (cfg if layers is None else cfg.replace(num_layers=layers)), model_parallel
+
+
+def leaf_sums(torch, tree, specs=None, mesh=None) -> list:
+    """Per leaf (sum, sum of |x|, sum of x * w) in float64, ``w_i = sin(0.61803398875 i + 1)`` at each element's
+    flat index i in the whole leaf: the last moves when a block lands at another rank's offset, which the first two
+    cannot see. Over a mesh each rank takes its shard at its global indices, each shard counted once, summed over
+    the job."""
+    from repro_torch.models import collectives
+    from repro_torch.models.module import local_box
+    from repro_torch.training.optimizer import tree_leaves, tree_leaves_specs
+
+    leaves = tree_leaves(tree)
+    spec_leaves = tree_leaves_specs(specs) if mesh is not None else [None] * len(leaves)
+    rows = []
+    for t, sp in zip(leaves, spec_leaves):
+        if t.dim() == 0:
+            t = t.reshape(1)
+        shape = tuple(t.shape) if sp is None else tuple(n * mesh.axis_size(sp.axes(d)) for d, n in enumerate(t.shape))
+        box = [(0, n) for n in shape] if sp is None else local_box(shape, sp, mesh)
+        strides = [math.prod(shape[d + 1:]) for d in range(len(shape))]
+        inner = torch.zeros((), dtype=torch.float64, device=t.device)  # the flat index within a row
+        for (a, b), st in zip(box[1:], strides[1:]):
+            inner = inner[..., None] + torch.arange(a, b, dtype=torch.float64, device=t.device) * st
+        step = max(1, (1 << 24) // max(1, inner.numel()))
+        proj = torch.zeros((), dtype=torch.float64, device=t.device)
+        for r in range(0, t.shape[0], step):
+            rows_idx = torch.arange(box[0][0] + r, box[0][0] + min(r + step, t.shape[0]), dtype=torch.float64,
+                                    device=t.device) * strides[0]
+            idx = rows_idx.reshape(-1, *([1] * inner.dim())) + inner
+            proj += (t[r : r + step].double() * torch.sin(0.61803398875 * idx + 1)).sum()
+        rows.append(torch.stack([t.double().sum(), t.double().abs().sum(), proj]))
+    sums = torch.stack(rows)
+    if mesh is None:
+        return sums.tolist()
+    copies = torch.tensor([mesh.size / mesh.axis_size([a for d in range(len(sp)) for a in sp.axes(d)])
+                           for sp in spec_leaves], dtype=torch.float64, device=sums.device)
+    return collectives.reduce_raw(sums / copies[:, None], mesh.group(mesh.axis_names)).tolist()
+
+
+def mesh_gemma_rank(torch, tmp: Path, what: str) -> None:
+    """gemma-2b at full width on 2 ranks: the f32 gate step, ``GEMMA_MESH_STEPS`` bf16 steps, and (mesh (1, 2))
+    the decode gate under ``DECODE_RULES`` with the KV cache split along the sequence, then prefill and decode timed.
+
+    The gate step starts from ``shard_init`` of the one-process params and zero moments, on the one-process
+    batch: loss and grad norm within ``LM_MESH_BAND`` of the one-process step (``gemma_ref.json``), and every
+    leaf's first moment (0.1 g) summed, |summed| and projected on weights fixed per global index
+    (:func:`leaf_sums`), each within it too, of the leaf's sum of |x|.
+    """
+    from repro_torch.core import prng
+    from repro_torch.launch.hostdevices import process_index
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import step_generator, synthetic_lm_batch
+    from repro_torch.models import collectives, transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.models.module import DECODE_RULES, SERVE_RULES, TRAIN_RULES
+    from repro_torch.training.lm_serve import make_decode_step, make_prefill_step
+    from repro_torch.training.optimizer import AdamW, tree_leaves
+    from repro_torch.training.train import init_train_state, jit_train_step
+
+    cfg, model_parallel = gemma_mesh_config(what)
+    mesh = make_host_mesh(model_parallel)
+    model, gate_model = build_model(cfg), build_model(cfg.replace(activation_dtype=GATE_ACTIVATIONS))
+    ref = json.loads((tmp / f"{what}_ref.json").read_text())
+    batch = synthetic_lm_batch(step_generator(0, 0), cfg, GEMMA_MESH_BATCH, GEMMA_MESH_SEQ, "cuda")
+    opt = AdamW(learning_rate=LM_LR)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(prng.key(0), gate_model, opt, "cuda", TRAIN_RULES, mesh)
+    specs = model.specs(TRAIN_RULES, mesh)
+    stored = {"params": sum(t.nbytes for t in tree_leaves(state.params)),
+              "optimizer": sum(t.nbytes for t in tree_leaves(state.opt.mu) + tree_leaves(state.opt.nu))}
+    gate_step = jit_train_step(gate_model, opt, mesh, TRAIN_RULES, batch=GEMMA_MESH_BATCH, seq=GEMMA_MESH_SEQ)
+    collectives.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = gate_step(state, batch)
+    torch.cuda.synchronize()
+    gate_s = time.perf_counter() - t0
+    sums = leaf_sums(torch, state.opt.mu, specs, mesh)
+    leaf_err = max(max(abs(x - y) for x, y in zip(got, want)) / max(want[1], 1e-30)
+                   for got, want in zip(sums, ref["mu_sums"]))
+    gate = {"loss": [float(m["loss"]), ref["loss"]], "grad_norm": [float(m["grad_norm"]), ref["grad_norm"]],
+            "loss_rel_err": abs(float(m["loss"]) - ref["loss"]) / max(1.0, abs(ref["loss"])),
+            "grad_norm_rel_err": abs(float(m["grad_norm"]) - ref["grad_norm"]) / max(1.0, ref["grad_norm"]),
+            "mu_leaf_sums_rel_err": leaf_err, "seconds": gate_s,
+            "collective_bytes": collectives.STATS["bytes"], "collective_ms": collectives.STATS["seconds"] * 1e3}
+    step = jit_train_step(model, opt, mesh, TRAIN_RULES, batch=GEMMA_MESH_BATCH, seq=GEMMA_MESH_SEQ)
+    seconds, coll, losses = [], [], []
+    for _ in range(GEMMA_MESH_STEPS):
+        collectives.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        seconds.append(time.perf_counter() - t0)
+        coll.append(dict(collectives.STATS))
+    step_s = statistics.median(seconds[1:])
+    tokens = GEMMA_MESH_BATCH * GEMMA_MESH_SEQ
+    line = {"phase": "lm_mesh_gemma2b_train", "rank": process_index(), "mesh": mesh.shape,
+            "rules": "TRAIN_RULES", "layers": [cfg.num_layers, 18], "batch": [GEMMA_MESH_BATCH, GEMMA_MESH_SEQ],
+            "gate_f32": gate, "band": LM_MESH_BAND, "bf16_losses": losses, "step_seconds": seconds,
+            "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+            "stored_bytes": stored, "one_process_bytes": ref["stored_bytes"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "collectives_per_step": {"calls": coll[-1]["calls"], "bytes": coll[-1]["bytes"],
+                                     "ms": coll[-1]["seconds"] * 1e3}}
+    print(json.dumps(line), flush=True)
+    errs = [gate["loss_rel_err"], gate["grad_norm_rel_err"], gate["mu_leaf_sums_rel_err"]]
+    if not all(math.isfinite(e) and e <= LM_MESH_BAND for e in errs) or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"gemma-2b on mesh {mesh.shape}: the f32 step off the one process: {gate}")
+    del state, step, gate_step
+    torch.cuda.empty_cache()
+    if what != "gemma_tp":
+        return
+    # the decode gate on (1, 2) under DECODE_RULES: a prefill of P tokens, then T one-token steps
+    yard = torch.load(tmp / "gemma_gate.pt")
+    P, T = yard["P"], yard["T"]
+    toks = yard["tokens"].cuda()
+    params = gate_model.shard_init(prng.key(0), DECODE_RULES, mesh, "cuda")
+    sctx = gate_model.ctx(SERVE_RULES, mesh).with_batch(1, P + T)
+    dctx = gate_model.ctx(DECODE_RULES, mesh).with_batch(1, P + T)
+    positions = lambda a, b: torch.arange(a, b, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        cache = gate_model.init_cache(1, P + T, "cuda", ctx=sctx)
+        _, cache = gate_model.prefill(params, toks[:, :P], cache, ctx=sctx)
+        h_dec = []
+        for t in range(P, P + T):
+            x = gate_model._embed(params, toks[:, t : t + 1], dctx)
+            h, cache, _ = transformer.apply_stack(params["stack"], x, positions(t, t + 1), gate_model.cfg, dctx,
+                                                  caches=cache)
+            h_dec.append(h)
+        r_dec = torch.cat(h_dec, dim=1).float() - gate_model._embed(params, toks[:, P:], dctx).float()
+        whole = gate_model.gather_cache(cache, sctx, 1, P + T)
+    r_fwd = yard["r_fwd"].cuda()
+    residual = float((r_dec - r_fwd).abs().max()) / max(float(r_fwd.abs().max()), 1e-30)
+    cache_err = {}
+    for name, want in yard["cache"].items():
+        got, want = cache_leaves(torch, whole)[name].float(), want.cuda().float()
+        if name.split(".")[-1] == "next_pos":
+            cache_err[name] = float((got - want).abs().max())
+            continue
+        layers = want.shape[0]
+        g, w = got.reshape(layers, -1), want.reshape(layers, -1)
+        cache_err[name] = max(((g - w).abs().amax(dim=1) / w.abs().amax(dim=1).clamp_min(1e-30)).tolist())
+    local_cache_bytes = sum(t.nbytes for t in cache_leaves(torch, cache).values())
+    del params, cache, whole
+    torch.cuda.empty_cache()
+    # prefill and greedy decode timed in the config's own bf16, with the cache split along the sequence
+    params = model.shard_init(prng.key(0), SERVE_RULES, mesh, "cuda")
+    max_len = DECODE_PROMPT + DECODE_TOKENS
+    prefill = make_prefill_step(model, SERVE_RULES, mesh, max_len)
+    decode = make_decode_step(model, rules=DECODE_RULES, mesh=mesh, max_len=max_len)
+    times = {}
+    ctx = model.ctx(SERVE_RULES, mesh).with_batch(1, max_len)
+    for _ in range(2):  # the first pass warms up; the second is timed
+        cache = model.init_cache(1, max_len, "cuda", ctx=ctx)
+        collectives.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, toks[:, :DECODE_PROMPT], cache)
+        torch.cuda.synchronize()
+        times["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        times["prefill_collective_ms"] = collectives.STATS["seconds"] * 1e3
+        tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+        collectives.reset_stats()
+        t0 = time.perf_counter()
+        for t in range(DECODE_TOKENS - 1):
+            tok, cache = decode(params, tok, cache, torch.tensor(DECODE_PROMPT + t, dtype=torch.int32, device="cuda"))
+        torch.cuda.synchronize()
+        times["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / (DECODE_TOKENS - 1)
+        times["decode_collective_bytes_per_token"] = collectives.STATS["bytes"] / (DECODE_TOKENS - 1)
+        times["decode_collective_ms_per_token"] = collectives.STATS["seconds"] * 1e3 / (DECODE_TOKENS - 1)
+    line = {"phase": "lm_mesh_gemma2b_decode", "rank": process_index(), "mesh": mesh.shape,
+            "rules": ["SERVE_RULES prefill", "DECODE_RULES decode"], "layers": [cfg.num_layers, 18],
+            "prompt": P, "teacher_tokens": T, "activation_dtype": GATE_ACTIVATIONS,
+            "residual_rel_err": residual, "cache_rel_err": cache_err, "cache_band": DECODE_CACHE_BAND,
+            "residual_band": DECODE_RESIDUAL_BAND, "local_cache_bytes": local_cache_bytes,
+            "whole_cache_bytes": yard["cache_bytes"], **times,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(json.dumps(line), flush=True)
+    bad = [k for k, v in cache_err.items() if not (math.isfinite(v) and v <= DECODE_CACHE_BAND)]
+    if bad or not (math.isfinite(residual) and residual <= DECODE_RESIDUAL_BAND):
+        raise AssertionError(f"gemma-2b decode on mesh {mesh.shape} off the one process: {line}")
+
+
+def phase_lm_mesh_probe(tmp: Path, card: str) -> None:
+    """``lm_mesh_probe``: the collectives on tensors of the card for 2 ranks that share it, each against
+    its one-process result: the raw ones handed a CUDA tensor (float32 and bfloat16) and the port's own,
+    which hand their tensors to ``gloo`` as they are. All must hold."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(ROOT / "scripts" / "lm_mesh_probe.py"), "--device", "cuda",
+                          "--groups", "port+native"], capture_output=True, text=True, env=child_env(),
+                         timeout=LM_MESH_TIMEOUT_S)
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    checks = report["checks"]
+    line = {"phase": "lm_mesh_probe", "card": card, "processes": report["processes"],
+            "native": {k: v for k, v in checks.items() if k.startswith("native")},
+            "port": {k: v for k, v in checks.items() if k.startswith("port")},
+            "design": "the port's own collectives on gloo (torch.distributed.tensor's redistribute kills a rank on "
+                      "CUDA tensors under gloo: scripts/lm_mesh_probe.py --groups dtensor)",
+            "seconds": time.perf_counter() - t0}
+    print(json.dumps(line), flush=True)
+    checked = {**line["port"], **line["native"]}
+    if out.returncode or not line["port"] or any(v != "ok" for v in checked.values()):
+        raise AssertionError(f"lm_mesh_probe: the port's collectives failed on the card: {line}\n{out.stderr[-2000:]}")
+
+
+def phase_lm_mesh_gemma(torch, tmp: Path, card: str) -> None:
+    """``lm_mesh_gemma2b_train`` and ``lm_mesh_gemma2b_decode``: one process first, then 2 ranks.
+
+    For each mesh of ``GEMMA_MESHES`` this process takes gemma-2b's f32 gate step at that mesh's depth (zero
+    moments, ``GEMMA_MESH_BATCH`` x ``GEMMA_MESH_SEQ`` tokens) and, for (1, 2), the decode gate's yardsticks
+    (one prefill of P + T tokens, and ``forward``'s residual at the decoded positions), writes them to ``tmp``
+    and frees the card; then one gang of 2 ranks runs on mesh (1, 2) (tensor parallel, and the decode), then
+    on (2, 1) (FSDP over ``embed``), and holds itself to them.
+    """
+    from repro_torch.core import prng
+    from repro_torch.launch.train import step_generator, synthetic_lm_batch
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import AdamW, tree_leaves
+    from repro_torch.training.train import TrainState, make_train_step
+    from repro_torch.utils import tree_size_bytes
+
+    for what, _, _ in GEMMA_MESHES:
+        t0 = time.perf_counter()
+        cfg, _ = gemma_mesh_config(what)
+        gate_model = build_model(cfg.replace(activation_dtype=GATE_ACTIVATIONS))
+        torch.cuda.reset_peak_memory_stats()
+        params = gate_model.init(prng.key(0), "cuda")
+        opt = AdamW(learning_rate=LM_LR)
+        state = TrainState(params=params, opt=opt.init(params),
+                           step=torch.zeros((), dtype=torch.int32, device="cuda"))
+        stored = {"params": sum(t.nbytes for t in tree_leaves(state.params)),
+                  "optimizer": sum(t.nbytes for t in tree_leaves(state.opt.mu) + tree_leaves(state.opt.nu))}
+        batch = synthetic_lm_batch(step_generator(0, 0), cfg, GEMMA_MESH_BATCH, GEMMA_MESH_SEQ, "cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = make_train_step(gate_model, opt)(state, batch)
+        torch.cuda.synchronize()
+        ref = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "mu_sums": leaf_sums(torch, state.opt.mu), "stored_bytes": stored,
+               "step_s": time.perf_counter() - t1, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        (tmp / f"{what}_ref.json").write_text(json.dumps(ref))
+        del state, params, m
+        torch.cuda.empty_cache()
+        if what == "gemma_tp":  # the decode gate's yardsticks, from the initial params
+            params = gate_model.init(prng.key(0), "cuda")
+            P, T = DECODE_PROMPT, TEACHER_TOKENS
+            gen = torch.Generator().manual_seed(1)
+            toks = torch.randint(0, cfg.vocab_size, (1, P + T), generator=gen).to(torch.int32).cuda()
+            with torch.no_grad():
+                x = gate_model._embed(params, toks)
+                h, _, _ = transformer.apply_stack(params["stack"], x,
+                                                  torch.arange(P + T, dtype=torch.int32, device="cuda"),
+                                                  gate_model.cfg)
+                r_fwd = (h[:, P:].float() - x[:, P:].float()).cpu()
+                del h, x
+                full = gate_model.prefill(params, toks, gate_model.init_cache(1, P + T, "cuda"))[1]
+            torch.save({"P": P, "T": T, "tokens": toks.cpu(), "r_fwd": r_fwd, "cache_bytes": tree_size_bytes(full),
+                        "cache": {k: v.cpu() for k, v in cache_leaves(torch, full).items()}}, tmp / "gemma_gate.pt")
+            del params, full
+            torch.cuda.empty_cache()
+        print(json.dumps({"phase": "lm_mesh_gemma2b_one_process", "card": card, "gang": what,
+                          "layers": [cfg.num_layers, 18], "loss": ref["loss"], "grad_norm": ref["grad_norm"],
+                          "f32_step_s": ref["step_s"], "stored_bytes": stored, "peak_gb": ref["peak_gb"],
+                          "seconds": time.perf_counter() - t0}), flush=True)
+    _, wall = run_lm_gang(2, tmp, "gemma", card)
+    print(json.dumps({"phase": "lm_mesh_gemma_gang_wall", "card": card, "seconds": wall}), flush=True)
+
+
+def phase_lm_mesh_cli(torch, tmp: Path, card: str) -> None:
+    """``lm_mesh_cli``: ``launch.train --model-parallel 2`` through ``launch.multiproc`` on the card
+    (``MESH_CLI_ARCH`` at full width and depth), then its last checkpoint restored in this process, whole,
+    and one more step taken from it."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.launch.train import step_generator, synthetic_lm_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import AdamW, tree_leaves
+    from repro_torch.training.train import init_train_state, make_train_step, state_from_leaves, state_leaves
+
+    ck = tmp / "cli"
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.multiproc", "--num-processes", "2", "--timeout",
+                          str(LM_MESH_TIMEOUT_S), "--", "--device", "cuda", "--arch", MESH_CLI_ARCH,
+                          "--model-parallel", "2", "--steps", str(MESH_CLI_STEPS), "--log-every", "5",
+                          "--checkpoint-dir", str(ck), "--checkpoint-every", str(MESH_CLI_STEPS)],
+                         capture_output=True, text=True, env=child_env(), timeout=LM_MESH_TIMEOUT_S + 60)
+    wall = time.perf_counter() - t0
+    log = out.stdout + out.stderr
+    learned = [line.split("] ", 1)[-1] for line in log.splitlines() if "(LEARNING)" in line or "(flat)" in line]
+    model = build_model(get_config(MESH_CLI_ARCH))
+    opt = AdamW()
+    like = init_train_state(prng.key(1), model, opt, "cuda")
+    t1 = time.perf_counter()
+    state = state_from_leaves(CheckpointManager(str(ck)).restore(state_leaves(like), step=MESH_CLI_STEPS), like)
+    restore_s = time.perf_counter() - t1
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in tree_leaves(state.params))
+    batch = synthetic_lm_batch(step_generator(0, MESH_CLI_STEPS), model.cfg, 8, 128, "cuda")
+    state, m = make_train_step(model, opt)(state, batch)
+    ckpt_bytes = sum(f.stat().st_size for f in (ck / f"step_{MESH_CLI_STEPS:08d}").iterdir())
+    line = {"phase": "lm_mesh_cli", "card": card, "arch": MESH_CLI_ARCH, "processes": 2, "model_parallel": 2,
+            "steps": MESH_CLI_STEPS, "rc": out.returncode, "result": learned, "wall_seconds": wall,
+            "mesh_logged": "mesh={'data': 1, 'model': 2}" in log, "checkpoint_bytes": ckpt_bytes,
+            "resumed_step": int(state.step), "restore_s": restore_s, "restored_finite": finite,
+            "step_after_resume_loss": float(m["loss"])}
+    print(json.dumps(line), flush=True)
+    if (out.returncode or not line["mesh_logged"] or not learned or "(LEARNING)" not in learned[-1] or not finite
+            or int(state.step) != MESH_CLI_STEPS + 1 or not math.isfinite(line["step_after_resume_loss"])):
+        raise AssertionError(f"lm_mesh_cli: {line}\n{log[-3000:]}")
+
+
+def run_lm_mesh_phases(torch, gram_kernel, card: str) -> dict:
+    """The mesh phases, with the Gram counters reset just before and read just after (they launch none)."""
+    if gram_kernel is not None:
+        reset_counters(gram_kernel)
+    t0 = time.perf_counter()
+    seconds = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-mesh-") as tmp_name:
+        tmp = Path(tmp_name)
+        for name, fn in (("lm_mesh_probe", lambda: phase_lm_mesh_probe(tmp, card)),
+                         ("lm_mesh_reduced_parity", lambda: run_lm_gang(LM_MESH_RANKS, tmp, "reduced", card)),
+                         ("lm_mesh_gemma2b", lambda: phase_lm_mesh_gemma(torch, tmp, card)),
+                         ("lm_mesh_cli", lambda: phase_lm_mesh_cli(torch, tmp, card))):
+            progress(name)
+            t1 = time.perf_counter()
+            fn()
+            seconds[name] = time.perf_counter() - t1
+    launches = {n: getattr(gram_kernel, n) for n in COUNTERS} if gram_kernel is not None else {}
+    print(json.dumps({"phase": "lm_mesh_wall_seconds", "card": card, "seconds": time.perf_counter() - t0,
+                      "by_phase": seconds, "gram_launches": launches}), flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"the LM mesh phases launched a Gram kernel: {launches}")
     return launches
 
 
@@ -2587,6 +3173,8 @@ def run_merge_phases(torch, np, gram_kernel, BPMFEngine, subset_merge, ml: dict,
 def main() -> int:
     if len(sys.argv) in (7, 8) and sys.argv[1] == "--mp-worker":  # one process of multiproc_ring's gang
         return mp_worker(Path(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]), *sys.argv[6:])
+    if len(sys.argv) == 4 and sys.argv[1] == "--lm-mesh-worker":  # one rank of an lm_mesh gang
+        return lm_mesh_worker(Path(sys.argv[2]), sys.argv[3])
     if not (SRC / "repro_torch" / "kernels" / "csrc" / "bpmf_gram.cu").is_file():
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it from the repository",
               file=sys.stderr)
@@ -2597,12 +3185,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
         return 1
-    if sys.argv[1:] == ["--lm-only"]:  # the LM phases alone, with no result line
+    if sys.argv[1:] in (["--lm-only"], ["--lm-mesh-only"]):  # the LM (or LM mesh) phases alone, no result line
         sys.path.insert(0, str(SRC))
         torch.backends.cuda.matmul.allow_tf32 = False
         card = card_line()
         print(f"card: {card}", flush=True)
-        run_lm_phases(torch, None, card)
+        (run_lm_phases if sys.argv[1] == "--lm-only" else run_lm_mesh_phases)(torch, None, card)
         return 0
     # a fresh, empty autotune cache for the whole run (the child processes inherit it)
     cold_cache = Path(tempfile.mkdtemp(prefix="chip_smoke-autotune-"))
@@ -2631,14 +3219,17 @@ def run_all(np, torch) -> int:
     print(f"card: {card}", flush=True)
     t_all = time.perf_counter()
 
+    progress("build")
     built = load_library("bpmf_gram")
     print(json.dumps({"phase": "build", "nvcc_seconds": built.seconds, "library": built.path.name,
                       "ptxas": ptxas_report(built.log)}), flush=True)
 
+    progress("kernel shapes")
     phase_kernel_shapes(torch, gram_kernel)
     phase_fused_shapes(torch, np, gram_kernel, ops, Bucket)
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp_name:
         tmp = Path(tmp_name)
+        progress("ml20m")
         ml = phase_ml20m(torch, gram_kernel, (BPMFConfig, BPMFEngine, ML20M_LIKE, synthetic_ratings), tmp)
         phase_graph_sweeps(torch, ml["engine"], ml, "sequential", card)
         phase_checkpoint(torch, np, gram_kernel, ml["engine"], ml, "ml20m_checkpoint", card)
@@ -2654,6 +3245,7 @@ def run_all(np, torch) -> int:
         seq_keys = sequential_keys(autotune, ml["engine"])
         del ml["engine"]
         torch.cuda.empty_cache()
+        progress("ring")
         ring = phase_ring(torch, gram_kernel, BPMFEngine, dist, ml, tmp)
         ring_keys = phase_autotune_cold(autotune, seq_keys, ring["engine"], card)
         phase_graph_sweeps(torch, ring["engine"], ring, f"ring S={RING_SHARDS}", card, dist=dist)
@@ -2662,14 +3254,18 @@ def run_all(np, torch) -> int:
     fused = phase_ring_layouts(torch, gram_kernel, ring["engine"])
     mp_root = Path(tempfile.mkdtemp(prefix="chip_smoke-mp-"))
     try:
+        progress("multiproc")
         mp = phase_multiproc(torch, np, ml, ring, mp_root, card)
         phase_multiproc_resume(torch, np, gram_kernel, ring["engine"], ring, mp, card)
         del ring["engine"]
         torch.cuda.empty_cache()
+        progress("merge")
         merge = run_merge_phases(torch, np, gram_kernel, BPMFEngine, subset_merge, ml, heldout, seq_rmse, mp, card)
+        progress("elastic")
         phase_elastic(mp_root / "elastic", card)
         del merge["engine"]
         torch.cuda.empty_cache()
+        progress("autotune")
         t_tuned = time.perf_counter()
         tuned = phase_autotune_ring(torch, np, gram_kernel, autotune, ops, BPMFEngine, dist, ml, ring, fused,
                                     ring_keys, mp_root, card)
@@ -2678,20 +3274,24 @@ def run_all(np, torch) -> int:
         shutil.rmtree(mp_root, ignore_errors=True)
     del ml["coo"]
     torch.cuda.empty_cache()
+    progress("small task")
     t_small = time.perf_counter()
     phase_small_task(np, gram_kernel, BPMFConfig, BPMFEngine, load_dataset, subset_merge, train_test_split)
     print(json.dumps({"phase": "merge_wall_seconds", "ml20m_merge_phases": merge["seconds"],
                       "small_task_with_merges": time.perf_counter() - t_small}), flush=True)
 
+    progress("bench drivers")
     t_bench = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke-bench-") as bench_tmp:
         bench = phase_bench_drivers(torch, gram_kernel, Path(bench_tmp), card)
+        progress("examples")
         t_examples = time.perf_counter()
         examples = phase_examples(gram_kernel, Path(bench_tmp), card)
     print(json.dumps({"phase": "autotune_wall_seconds", "autotune_ring": tuned_s,
                       "bench_drivers": t_examples - t_bench,
                       "examples": time.perf_counter() - t_examples}), flush=True)
     lm_launches = run_lm_phases(torch, gram_kernel, card)
+    run_lm_mesh_phases(torch, gram_kernel, card)
 
     phase_yardsticks(ml["gram"], fused)
     gram = ml["gram"]

@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.data.sparse import RatingsCOO
 
@@ -33,6 +34,31 @@ ML100K_LIKE = SyntheticSpec(num_users=943, num_movies=1_682, nnz=100_000)
 CHEMBL_LIKE = SyntheticSpec(
     num_users=483_500, num_movies=5_775, nnz=1_023_952, discretize=False, noise_std=0.6
 )
+
+
+def weighted_choice(rng: np.random.Generator, p: np.ndarray, size: int) -> np.ndarray:
+    """``rng.choice(len(p), size=size, p=p)`` as int64, the same draws and the same state after, faster.
+
+    It is numpy's own algorithm (the cumulative sum scaled to end at 1, one
+    ``rng.random`` per draw, the first index whose sum exceeds it), with the
+    search over the host's threads (``torch.searchsorted``): at ML20M's
+    26M draws numpy's one-thread search is most of the generator's time.
+    """
+    cdf = np.asarray(p, dtype=np.float64).cumsum()
+    cdf /= cdf[-1]
+    uniform = rng.random(size)
+    return torch.searchsorted(torch.from_numpy(cdf), torch.from_numpy(uniform), right=True).numpy()
+
+
+def sorted_unique(keys: np.ndarray) -> np.ndarray:
+    """``np.unique(keys)`` by one sort and a neighbour compare.
+
+    numpy 2.3's ``unique`` hashes integers before it sorts them: on a
+    host with numpy 2.3.5 that took 76 s for ML20M's 26M keys, where a
+    sort takes seconds.
+    """
+    keys = np.sort(keys)
+    return keys[np.concatenate(([True], keys[1:] != keys[:-1]))] if keys.size else keys
 
 
 def synthetic_ratings(spec: SyntheticSpec) -> tuple[RatingsCOO, dict]:
@@ -60,11 +86,11 @@ def synthetic_ratings(spec: SyntheticSpec) -> tuple[RatingsCOO, dict]:
     # oversample then dedupe; a couple of rounds suffice at these densities
     for _ in range(6):
         need = int((target - got) * 1.3) + 1
-        r = rng.choice(spec.num_users, size=need, p=act).astype(np.int64)
-        c = rng.choice(spec.num_movies, size=need, p=pop).astype(np.int64)
+        r = weighted_choice(rng, act, need)
+        c = weighted_choice(rng, pop, need)
         keys = r * spec.num_movies + c
-        keys = np.unique(keys) if seen is None else np.setdiff1d(np.unique(keys), seen, assume_unique=True)
-        seen = keys if seen is None else np.union1d(seen, keys)
+        keys = sorted_unique(keys) if seen is None else np.setdiff1d(sorted_unique(keys), seen, assume_unique=True)
+        seen = keys if seen is None else sorted_unique(np.concatenate((seen, keys)))
         rows_list.append((keys // spec.num_movies).astype(np.int32))
         cols_list.append((keys % spec.num_movies).astype(np.int32))
         got = sum(len(x) for x in rows_list)

@@ -1,4 +1,4 @@
-"""The BPMF ring of shard devices (the port of ``repro.launch.mesh.bpmf_ring``).
+"""The BPMF ring of shard devices and the LM's mesh of ranks (the port of ``repro.launch.mesh``).
 
 The JAX package builds a 1-D ``Mesh`` over the first ``num_shards``
 global devices. Here a ring is the ordered list of S shard devices. In one
@@ -7,6 +7,11 @@ exceed n and shards then share a card; on the CPU every shard sits on the
 CPU. In a job of P processes (:mod:`repro_torch.launch.hostdevices`) the
 ring spans them: process p holds shards ``local_shard_range(S, p, P)``,
 all on its own device.
+
+:func:`make_host_mesh` is the LM's ``("data", "model")`` mesh over the
+job's ranks (one rank outside a job), as the reference's over whatever
+devices exist. ``make_production_mesh`` and ``bpmf_ring_from`` wait for
+the dry run (ROADMAP Queue 1 item 11e).
 """
 from __future__ import annotations
 
@@ -14,6 +19,25 @@ import torch
 
 from repro_torch.core.distributed import Ring, local_shard_range
 from repro_torch.launch.hostdevices import process_count, process_index
+from repro_torch.models.collectives import Mesh
+
+
+def make_host_mesh(model: int = 1) -> Mesh:
+    """The ``("data", "model")`` mesh of shape ``(n // model, model)`` over the job's n ranks.
+
+    ``model`` is capped at n, as the reference caps it at its device count.
+    A collective: every rank of the job calls it.
+
+    Raises:
+        ValueError: ``model`` is below 1 or does not divide n.
+    """
+    n = process_count()
+    if model < 1:
+        raise ValueError(f"model must be >= 1, got {model}")
+    model = min(model, n)
+    if n % model:
+        raise ValueError(f"model-parallel {model} does not divide the job's {n} processes")
+    return Mesh.create((n // model, model), ("data", "model"))
 
 
 def bpmf_ring(num_shards: int = 0, device: str | torch.device | None = None) -> Ring:

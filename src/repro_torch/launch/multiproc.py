@@ -1,8 +1,14 @@
-"""Run ``repro_torch.launch.bpmf`` as a job of N processes on this host (DESIGN.md §14).
+"""Run ``repro_torch.launch.bpmf`` (or ``launch.train``) as a job of N processes on this host (DESIGN.md §14).
 
     PYTHONPATH=src python -m repro_torch.launch.multiproc --num-processes 2 -- \
         --device cpu --backend ring --num-shards 4 --sweeps 8 \
         --checkpoint-dir /tmp/ck --checkpoint-every 2
+    PYTHONPATH=src python -m repro_torch.launch.multiproc --num-processes 4 -- \
+        --device cpu --arch gemma-2b --reduced --model-parallel 2
+
+The children run ``repro_torch.launch.train`` (the LM over a mesh of the
+job's ranks) when the forwarded arguments name an ``--arch``, else
+``repro_torch.launch.bpmf``.
 
 The port's counterpart of ``scripts/launch_multiproc.py``. It spawns N
 children with process-major ids 0..N-1 and wires them into one
@@ -43,7 +49,7 @@ _SRC = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.multiproc",
-        description="Run repro_torch.launch.bpmf as N local processes "
+        description="Run repro_torch.launch.bpmf (launch.train with --arch) as N local processes "
                     "(the arguments after -- go to every process).",
     )
     p.add_argument("--num-processes", type=int, default=2)
@@ -83,8 +89,10 @@ def run_once(num_processes: int, forward: list[str], timeout: float) -> int:
         child_env = dict(env)
         if num_processes > 1:
             child_env["REPRO_PROCESS_ID"] = str(i)
+        entry = "repro_torch.launch.train" if any(a == "--arch" or a.startswith("--arch=") for a in forward) \
+            else "repro_torch.launch.bpmf"
         proc = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.bpmf", *forward],
+            [sys.executable, "-m", entry, *forward],
             env=child_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         procs.append(proc)

@@ -18,8 +18,19 @@ logs every ``--log-every`` steps, checkpoints every ``--checkpoint-every``
 steps into ``--checkpoint-dir`` (resuming from its latest step when there
 is one; the files are the reference's, leaf for leaf), and prints ``loss
 first -> last (LEARNING)`` or ``(flat)``: it exits 0 only when the mean loss
-of the last 5 steps is below that of the first 5. ``--model-parallel``
-above 1 raises (several cards: ROADMAP Queue 1 item 9).
+of the last 5 steps is below that of the first 5.
+
+``--model-parallel N`` runs the LM over a ``("data", "model")`` mesh of the
+job's ranks (ROADMAP Queue 1 item 9a) under ``TRAIN_RULES``: run it as a job
+of P processes, ``python -m repro_torch.launch.multiproc --num-processes P
+-- --arch ... --model-parallel N`` (ranks on one card share it over
+``gloo``), for a mesh of shape ``(P // N, N)``. Each rank holds its shards
+of the state, sees the whole batch and computes its rows; every rank logs
+the same loss, rank 0 alone prints it. The checkpoints hold whole leaves
+(each rank writes its shards), so a run saved at one mesh resumes at any
+other, or in one process, and the reference reads them. ``--model-parallel``
+above the job's process count raises: several cards, one rank each, are
+ROADMAP Queue 1 item 9b.
 """
 from __future__ import annotations
 
@@ -32,8 +43,11 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core import prng
+from repro_torch.launch.hostdevices import init_multiprocess, process_count, process_index, shutdown
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import build_model
+from repro_torch.models.module import TRAIN_RULES
 from repro_torch.training.optimizer import AdamW, warmup_cosine
 from repro_torch.training.train import (
     init_train_state,
@@ -41,6 +55,7 @@ from repro_torch.training.train import (
     state_from_leaves,
     state_host_leaves,
     state_leaves,
+    state_specs,
 )
 from repro_torch.utils import logger, resolve_device
 
@@ -92,18 +107,26 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"], help="where to run (default cuda)")
     args = ap.parse_args(argv)
-    if args.model_parallel > 1:
-        raise NotImplementedError("--model-parallel > 1 needs several cards (ROADMAP Queue 1 item 9)")
     device = resolve_device(args.device)
+    joined = init_multiprocess(device=args.device)
+    if args.model_parallel > process_count():
+        raise NotImplementedError(
+            f"--model-parallel {args.model_parallel} needs a job of at least as many processes "
+            f"(python -m repro_torch.launch.multiproc --num-processes {args.model_parallel} -- ...); this "
+            f"one has {process_count()}. One rank per card on several cards is ROADMAP Queue 1 item 9b")
+    mesh = make_host_mesh(args.model_parallel) if joined else None
+    log = logger.info if process_index() == 0 else (lambda *a: None)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
     opt = AdamW(learning_rate=warmup_cosine(args.lr, args.steps // 10 + 1, args.steps))
-    step_fn = make_train_step(model, opt, args.microbatches)
-    state = init_train_state(prng.key(args.seed), model, opt, device)
-    logger.info("arch=%s params=%.2fM device=%s", cfg.name, model.num_params() / 1e6, device)
+    step_fn = make_train_step(model, opt, args.microbatches, rules=TRAIN_RULES, mesh=mesh)
+    state = init_train_state(prng.key(args.seed), model, opt, device, TRAIN_RULES, mesh)
+    specs = state_specs(model, opt, TRAIN_RULES, mesh) if mesh is not None else None
+    log("arch=%s params=%.2fM device=%s%s", cfg.name, model.num_params() / 1e6, device,
+        f" mesh={mesh.shape}" if mesh is not None else "")
 
     manager = None
     start = 0
@@ -111,9 +134,9 @@ def main(argv: list[str] | None = None) -> int:
         manager = CheckpointManager(args.checkpoint_dir)
         latest = manager.latest()
         if latest is not None:
-            state = state_from_leaves(manager.restore(state_leaves(state), step=latest), state)
+            state = state_from_leaves(manager.restore(state_leaves(state), step=latest), state, specs, mesh)
             start = latest
-            logger.info("restored step %d from %s", start, args.checkpoint_dir)
+            log("restored step %d from %s", start, args.checkpoint_dir)
 
     losses = []
     t0 = time.time()
@@ -123,17 +146,18 @@ def main(argv: list[str] | None = None) -> int:
         losses.append(float(metrics["loss"]))
         if (step + 1) % args.log_every == 0:
             dt = (time.time() - t0) / args.log_every
-            logger.info("step %4d loss=%.4f acc=%.3f gnorm=%.2f %.0f tok/s", step + 1, losses[-1],
-                        float(metrics["accuracy"]), float(metrics["grad_norm"]), args.batch * args.seq / dt)
+            log("step %4d loss=%.4f acc=%.3f gnorm=%.2f %.0f tok/s", step + 1, losses[-1],
+                float(metrics["accuracy"]), float(metrics["grad_norm"]), args.batch * args.seq / dt)
             t0 = time.time()
         if manager and (step + 1) % args.checkpoint_every == 0:
-            manager.save(step + 1, state_host_leaves(state))
+            manager.save(step + 1, state_host_leaves(state, specs, mesh))
     if manager:
-        manager.save(args.steps, state_host_leaves(state))
+        manager.save(args.steps, state_host_leaves(state, specs, mesh))
         manager.close()
 
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-    logger.info("loss %.4f -> %.4f (%s)", first, last, "LEARNING" if last < first else "flat")
+    log("loss %.4f -> %.4f (%s)", first, last, "LEARNING" if last < first else "flat")
+    shutdown()
     return 0 if last < first else 1
 
 

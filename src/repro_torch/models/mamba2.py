@@ -25,6 +25,14 @@ masked half), which a 256-token chunk reaches at random init.
 
 Decode is the O(1) recurrence step on a ``[B, H, P, N]`` state plus a
 depthwise-conv window of the last ``K - 1`` inputs.
+
+Over a mesh (``ctx``) the in-projection's ``[x | B | C]`` output channels
+split over ``inner``'s axes: the causal conv (per channel) runs on this
+rank's channels (and a decode window of them), and the conv's output is
+gathered, since the split after it crosses channel shards. The SSD runs on
+this rank's heads (``ssm_heads``, with the B and C groups they read), the
+gated norm's mean of squares is summed over the heads' axes, and the
+out-projection's partial sums over its ``inner`` axes.
 """
 from __future__ import annotations
 
@@ -34,10 +42,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.attention import _bmm_f32
+from repro_torch.models.attention import _bmm_f32, _groups_for_heads
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.module import desc, fan_in_desc
+from repro_torch.models.module import NO_SHARDING, PartitionSpec, ShardingCtx, desc, fan_in_desc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,10 +219,16 @@ def _pad_seq(t: torch.Tensor, to: int) -> torch.Tensor:
     return F.pad(t, pad)
 
 
+def _channels(axes: tuple[str, ...]) -> PartitionSpec:
+    """The layout of a [B, L, channels] tensor whose channels split over ``axes``."""
+    return PartitionSpec.of(None, None, axes)
+
+
 def apply_mamba2(
     params: dict,
     x: torch.Tensor,  # [B, L, D]
     cfg: ModelConfig,
+    ctx: ShardingCtx = NO_SHARDING,
     state: Optional[SSMState] = None,
     return_state: bool = False,
 ) -> tuple[torch.Tensor, Optional[SSMState]]:
@@ -226,32 +240,37 @@ def apply_mamba2(
     ad = cfg.dtype("act")
     Bsz, L, _ = x.shape
     di, H, P, N, G = cfg.d_inner, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_ngroups
-    A = -torch.exp(params["A_log"].float())
+    d = desc_mamba2(cfg)
 
     xa = x.to(ad)
-    z = xa @ params["w_z"].to(ad)
-    xBC = xa @ params["w_xBC"].to(ad)
-    dt_raw = xa @ params["w_dt"].to(ad)
+    z = xa @ ctx.weight(params["w_z"].to(ad), d["w_z"])  # channels split over z_ax
+    xBC = xa @ ctx.weight(params["w_xBC"].to(ad), d["w_xBC"])  # [x | B | C] channels split over c_ax
+    dt_raw = xa @ ctx.weight(params["w_dt"].to(ad), d["w_dt"])  # heads split over h_ax
+    z_ax, c_ax, h_ax = (ctx.weight_axes(d[n], 1) for n in ("w_z", "w_xBC", "w_dt"))
+    conv_w, conv_b = ctx.weight(params["conv_w"], d["conv_w"]), ctx.weight(params["conv_b"], d["conv_b"])
+    H_l = dt_raw.shape[-1]
+    h0 = ctx.index(h_ax) * H_l
+    A = -torch.exp(ctx.weight(params["A_log"], d["A_log"]).float())
 
     decode = state is not None and L == 1
     if decode:
         window = torch.cat([state.conv, xBC], dim=1)  # [B, K, cd]
-        conv_out = ((window.float() * params["conv_w"].float()).sum(dim=1)
-                    + params["conv_b"].float()).to(ad)[:, None, :]
+        conv_out = ((window.float() * conv_w.float()).sum(dim=1) + conv_b.float()).to(ad)[:, None, :]
         new_conv = window[:, 1:, :]
     else:
-        conv_out = _causal_conv(xBC, params["conv_w"], params["conv_b"])
+        conv_out = _causal_conv(xBC, conv_w, conv_b)
         new_conv = None
         if return_state:
             K = cfg.ssm_conv
             tail = xBC[:, -(K - 1) :, :]
             new_conv = F.pad(tail, (0, 0, (K - 1) - tail.shape[1], 0))  # left-padded when L < K - 1
-    xBC = F.silu(conv_out)
+    xBC = ctx.relayout(F.silu(conv_out), _channels(c_ax), PartitionSpec())  # every channel: the split crosses shards
 
-    x_ssm = xBC[..., :di].reshape(Bsz, L, H, P)
-    Bm = xBC[..., di : di + G * N].reshape(Bsz, L, G, N)
-    Cm = xBC[..., di + G * N :].reshape(Bsz, L, G, N)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])  # [B, L, H]
+    x_ssm = xBC[..., :di].reshape(Bsz, L, H, P)[:, :, h0 : h0 + H_l]
+    rep = H // G
+    Bm = _groups_for_heads(xBC[..., di : di + G * N].reshape(Bsz, L, G, N), 2, H_l, h0, 0, rep)
+    Cm = _groups_for_heads(xBC[..., di + G * N :].reshape(Bsz, L, G, N), 2, H_l, h0, 0, rep)
+    dt = F.softplus(dt_raw.float() + ctx.weight(params["dt_bias"], d["dt_bias"]))  # [B, L, H_l]
 
     if decode:
         y, S_new = ssd_step(x_ssm[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0], state.S)
@@ -272,8 +291,18 @@ def apply_mamba2(
                      else torch.zeros((), dtype=torch.int32, device=x.device))
             new_state = SSMState(S=S_new, conv=new_conv, next_pos=start + L)
 
-    y = y + params["D"].float()[None, None, :, None] * x_ssm.float()
-    y = y.reshape(Bsz, L, di).to(ad)
-    y = rms_norm(y * F.silu(z.float()).to(ad), params["norm_scale"])
-    out = y @ params["out_proj"].to(ad)
-    return out, new_state
+    D_skip = ctx.weight(params["D"], d["D"])
+    y = y + D_skip.float()[None, None, :, None] * x_ssm.float()
+    y = y.reshape(Bsz, L, H_l * P).to(ad)  # channels of this rank's heads: split over h_ax
+    gated = y * F.silu(ctx.relayout(z, _channels(z_ax), _channels(h_ax)).float()).to(ad)
+    scale = ctx.relayout(ctx.weight(params["norm_scale"], d["norm_scale"]),
+                         PartitionSpec.of(ctx.weight_axes(d["norm_scale"], 0)), PartitionSpec.of(h_ax))
+    if h_ax:  # the gated norm's mean of squares over every head
+        gf = gated.float()
+        ms = ctx.psum(gf.square().sum(-1, keepdim=True), h_ax) / di
+        y = (gf * torch.rsqrt(ms + 1e-6) * scale.float()).to(ad)
+    else:
+        y = rms_norm(gated, scale)
+    o_ax = ctx.weight_axes(d["out_proj"], 0)
+    out = ctx.relayout(y, _channels(h_ax), _channels(o_ax)) @ ctx.weight(params["out_proj"].to(ad), d["out_proj"])
+    return ctx.psum(out, o_ax), new_state

@@ -19,6 +19,13 @@ reference's ``combine.astype(ad)``. Every (batch row, group) pair runs at
 once, where the reference vmaps rows and scans groups. Ties in the router
 probabilities go to the lower expert index, as ``jax.lax.top_k`` gives them
 (a stable descending sort).
+
+Over a mesh (``ctx``) the router and the expert bank are gathered for use
+by ``ctx.weight`` (``experts`` is replicated under every rule table; the
+experts' ``mlp`` dim splits over ``model`` under ``TRAIN_RULES``), routing,
+slots, dispatch and combine run on this rank's rows, the output's partial
+sums over a split ``mlp`` are summed over its axes, and each metric is
+meaned over the batch's shards.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.module import fan_in_desc
+from repro_torch.models.module import NO_SHARDING, ShardingCtx, fan_in_desc
 
 __all__ = ["MOE_GROUP", "desc_moe", "capacity", "apply_moe"]
 
@@ -83,7 +90,8 @@ def _slots(top_e: torch.Tensor, E: int, C: int) -> tuple[torch.Tensor, torch.Ten
     return rank.view(N, K, g), (rank < C).view(N, K, g)
 
 
-def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig,
+              ctx: ShardingCtx = NO_SHARDING) -> tuple[torch.Tensor, dict]:
     """Returns (y [B, L, D], metrics {aux_loss, router_z, drop_fraction}), each metric the mean over
     groups and batch rows. Groups never straddle batch rows; at decode (L = 1) each token is its own
     group with capacity >= k, so nothing is dropped."""
@@ -94,8 +102,9 @@ def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Te
     N = B * (L // g)
     C = capacity(g, cfg)
     xt = x.reshape(N, g, D).to(ad)
+    d = desc_moe(cfg)
 
-    logits, probs, top_p, top_e = _route(xt, params["router"].to(ad), cfg)
+    logits, probs, top_p, top_e = _route(xt, ctx.weight(params["router"].to(ad), d["router"]), cfg)
     rank, keep = _slots(top_e, E, C)
     e_kg = top_e.transpose(1, 2)  # [N, K, g]
     # slot -> token of each group ([N, E*C], g = empty: the zero row); dropped picks go to a spare column
@@ -106,16 +115,16 @@ def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Te
     expert_in = xt_pad.gather(1, token[:, : E * C, None].expand(-1, -1, D))  # [N, E*C, D]
     expert_in = expert_in.view(N, E, C, D).transpose(0, 1).reshape(E, N * C, D)
 
-    h_up = torch.bmm(expert_in, params["w_up"].to(ad))
-    h_gate = torch.bmm(expert_in, params["w_gate"].to(ad)) if "w_gate" in params else None
-    expert_out = torch.bmm(_activation(h_gate, h_up, cfg), params["w_down"].to(ad))  # [E, N*C, D]
+    h_up = torch.bmm(expert_in, ctx.weight(params["w_up"].to(ad), d["w_up"]))
+    h_gate = torch.bmm(expert_in, ctx.weight(params["w_gate"].to(ad), d["w_gate"])) if "w_gate" in params else None
+    expert_out = torch.bmm(_activation(h_gate, h_up, cfg), ctx.weight(params["w_down"].to(ad), d["w_down"]))
 
     # combine: each token's kept picks, weighted in the activation dtype, summed in fp32
     w = (top_p.transpose(1, 2) * keep).to(ad)  # [N, K, g]
     n_idx = torch.arange(N, device=x.device)[:, None, None]
     rows = torch.where(keep, e_kg * (N * C) + n_idx * C + rank, 0).reshape(-1)
     picked = expert_out.reshape(E * N * C, D).index_select(0, rows).view(N, K, g, D)
-    y = (picked.float() * w[..., None].float()).sum(dim=1).to(ad)
+    y = ctx.psum((picked.float() * w[..., None].float()).sum(dim=1), ctx.weight_axes(d["w_down"], 1)).to(ad)
 
     me = probs.mean(dim=1)  # [N, E] mean router prob per expert
     ce = F.one_hot(top_e[..., 0], E).float().mean(dim=1)  # [N, E] share of top-1 picks
@@ -125,4 +134,4 @@ def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Te
         "router_z": torch.square(torch.logsumexp(logits, dim=-1)).mean(dim=-1).mean(),
         "drop_fraction": ((1.0 - kept / (g * K)).float().sum() / N).to(ad),  # jnp.mean's sum / n
     }
-    return y.view(B, L, D), metrics
+    return y.view(B, L, D), {k: ctx.batch_mean(v) for k, v in metrics.items()}

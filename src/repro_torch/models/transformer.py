@@ -37,6 +37,15 @@ attention family (an :class:`MLACache` for MLA), one :class:`SSMState`
 Under ``remat="block"`` the expert products are batched (``bmm`` over the
 experts), so they are recomputed, not saved, as the reference's
 ``dots_with_no_batch_dims_saveable`` treats its expert einsums.
+
+Over a mesh (``ctx``) the residual stream is this rank's rows of the batch,
+whole along ``d_model`` (the reference's ``("batch", "seq", "act_embed")``
+constraints hold by construction), and a recomputed region re-issues its
+collectives in the same order on every rank. The reference's
+``pin_group`` constrains a remat group's weights to their storage spec so
+their gradients stay sharded; here a layer's weights are the stored shards
+themselves, and ``ctx.weight``'s backward already reduce-scatters each
+gradient to its shard.
 """
 from __future__ import annotations
 
@@ -60,7 +69,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_mlp, apply_norm, desc_mlp, desc_norm
 from repro_torch.models.mamba2 import SSMState, apply_mamba2, desc_mamba2, init_ssm_state
 from repro_torch.models.moe import apply_moe, desc_moe
-from repro_torch.models.module import stacked
+from repro_torch.models.module import NO_SHARDING, ShardingCtx, stacked
 
 Tree = Any
 
@@ -118,17 +127,18 @@ def apply_attn_layer(
     x: torch.Tensor,
     positions: torch.Tensor,
     cfg: ModelConfig,
+    ctx: ShardingCtx,
     cache: Optional[KVCache | MLACache],
 ) -> tuple[torch.Tensor, Optional[KVCache | MLACache], dict]:
     """Pre-norm attention + MLP/MoE block. Returns (x, cache', moe_metrics)."""
     h = apply_norm(params["ln_attn"], x, cfg)
-    a, new_cache = _attn_fn(cfg)(params["attn"], h, positions, cfg, cache)
+    a, new_cache = _attn_fn(cfg)(params["attn"], h, positions, cfg, ctx, cache)
     x = x + a
     h = apply_norm(params["ln_mlp"], x, cfg)
     if cfg.num_experts:
-        m, metrics = apply_moe(params["moe"], h, cfg)
+        m, metrics = apply_moe(params["moe"], h, cfg, ctx)
     else:
-        m, metrics = apply_mlp(params["mlp"], h, cfg), zero_metrics(x.device)
+        m, metrics = apply_mlp(params["mlp"], h, cfg, ctx), zero_metrics(x.device)
     return x + m, new_cache, metrics
 
 
@@ -136,12 +146,13 @@ def apply_ssm_layer(
     params: dict,
     x: torch.Tensor,
     cfg: ModelConfig,
+    ctx: ShardingCtx,
     state: Optional[SSMState],
     return_state: bool,
 ) -> tuple[torch.Tensor, Optional[SSMState]]:
     """Pre-norm mamba2 mixer with a residual. Returns (x, state')."""
     h = apply_norm(params["ln"], x, cfg)
-    y, new_state = apply_mamba2(params["mixer"], h, cfg, state, return_state)
+    y, new_state = apply_mamba2(params["mixer"], h, cfg, ctx, state, return_state)
     return x + y, new_state
 
 
@@ -215,13 +226,14 @@ def _apply_attn_stack(
     x: torch.Tensor,
     positions: torch.Tensor,
     cfg: ModelConfig,
+    ctx: ShardingCtx,
     caches: Optional[KVCache | MLACache],
 ) -> tuple[torch.Tensor, Optional[KVCache | MLACache], dict]:
     L = cfg.num_layers
     layers = _unstack(params["layers"], L)
 
     def body(x: torch.Tensor, p: dict) -> tuple[torch.Tensor, dict]:
-        x, _, metrics = apply_attn_layer(p, x, positions, cfg, None)
+        x, _, metrics = apply_attn_layer(p, x, positions, cfg, ctx, None)
         return x, metrics
 
     g = cfg.remat_group
@@ -251,7 +263,7 @@ def _apply_attn_stack(
         return x, None, _mean_metrics(mets)
 
     def cached(p: dict, x: torch.Tensor, cache: Tree) -> tuple[torch.Tensor, Tree, dict]:
-        return apply_attn_layer(p, x, positions, cfg, cache)
+        return apply_attn_layer(p, x, positions, cfg, ctx, cache)
 
     step = _remat(cached, cfg)
     new_caches, mets = [], []
@@ -267,20 +279,21 @@ def _apply_attn_stack(
 # ---------------------------------------------------------------------------
 
 
-def _ssm_layer_step(cfg: ModelConfig, return_state: bool) -> Callable:
+def _ssm_layer_step(cfg: ModelConfig, ctx: ShardingCtx, return_state: bool) -> Callable:
     """One mamba2 layer under ``cfg.remat``: (x, params, state) -> (x, state')."""
-    return _remat(lambda x, p, st: apply_ssm_layer(p, x, cfg, st, return_state), cfg)
+    return _remat(lambda x, p, st: apply_ssm_layer(p, x, cfg, ctx, st, return_state), cfg)
 
 
 def _apply_ssm_stack(
     params: dict,
     x: torch.Tensor,
     cfg: ModelConfig,
+    ctx: ShardingCtx,
     states: Optional[SSMState],  # stacked [L, ...] or None
     return_state: bool,
 ) -> tuple[torch.Tensor, Optional[SSMState]]:
     L = cfg.num_layers
-    step = _ssm_layer_step(cfg, return_state)
+    step = _ssm_layer_step(cfg, ctx, return_state)
     new_states = []
     for p, st in zip(_unstack(params["layers"], L), _unstack(states, L)):
         x, ns = step(x, p, st)
@@ -315,6 +328,7 @@ def _apply_hybrid_stack(
     x: torch.Tensor,
     positions: torch.Tensor,
     cfg: ModelConfig,
+    ctx: ShardingCtx,
     caches: Optional[HybridCache],
     return_state: bool,
 ) -> tuple[torch.Tensor, Optional[HybridCache]]:
@@ -324,11 +338,11 @@ def _apply_hybrid_stack(
 
     # nested remat, as the reference's: the checkpointed segment's recompute
     # must not keep every inner layer's activations at once
-    inner = _ssm_layer_step(cfg, return_state)
+    inner = _ssm_layer_step(cfg, ctx, return_state)
 
     def seg_body(x: torch.Tensor, attn_cache: Optional[KVCache], ssm_seg: Optional[SSMState],
                  *p_seg: dict) -> tuple[torch.Tensor, Optional[SSMState], Optional[KVCache]]:
-        x, new_attn, _ = apply_attn_layer(shared, x, positions, cfg, attn_cache)
+        x, new_attn, _ = apply_attn_layer(shared, x, positions, cfg, ctx, attn_cache)
         new_ssm = []
         for p, st in zip(p_seg, _unstack(ssm_seg, k)):
             x, ns = inner(x, p, st)
@@ -358,6 +372,7 @@ def apply_stack(
     x: torch.Tensor,  # [B, L, D] embedded inputs
     positions: torch.Tensor,  # [L] int32
     cfg: ModelConfig,
+    ctx: ShardingCtx = NO_SHARDING,
     caches: Optional[Tree] = None,
     return_state: bool = False,
 ) -> tuple[torch.Tensor, Optional[Tree], dict]:
@@ -371,13 +386,13 @@ def apply_stack(
     """
     if cfg.family == "ssm":
         want_state = caches is not None or return_state
-        x, new_states = _apply_ssm_stack(params, x, cfg, caches, want_state)
+        x, new_states = _apply_ssm_stack(params, x, cfg, ctx, caches, want_state)
         return x, new_states, zero_metrics(x.device)
     if cfg.family == "hybrid":
         want_state = caches is not None or return_state
-        x, new_caches = _apply_hybrid_stack(params, x, positions, cfg, caches, want_state)
+        x, new_caches = _apply_hybrid_stack(params, x, positions, cfg, ctx, caches, want_state)
         return x, new_caches, zero_metrics(x.device)
-    return _apply_attn_stack(params, x, positions, cfg, caches)
+    return _apply_attn_stack(params, x, positions, cfg, ctx, caches)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,

@@ -14,6 +14,13 @@ is made. The update is elementwise, so chunking changes no value.
 
 Nothing here reads a tensor back to the host: the step count, the
 learning rate and the clip scale stay on the device.
+
+Over a mesh each rank updates its own shards (``state_specs``: the moments
+are laid out as the params), which is exact for an elementwise update;
+chunks and pieces cut a rank's local shard only, never a dim across
+ranks. The global norm is one sum over the job of each rank's sums of
+squares, each leaf weighted by one over the number of ranks holding a copy
+of its shard (``global_norm(tree, ctx, specs)``).
 """
 from __future__ import annotations
 
@@ -65,11 +72,34 @@ def warmup_cosine(peak: float, warmup: int, total: int, floor: float = 0.1) -> C
     return schedule
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32 (each leaf ``_PIECE`` elements at a time)."""
-    sums = [torch.sum(torch.square(piece.float())) for x in tree_leaves(tree)
-            for piece in x.reshape(-1).split(_PIECE)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+def global_norm(tree: Tree, ctx=None, specs: Tree = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in fp32 (each leaf ``_PIECE`` elements at a time).
+
+    Over a mesh (``ctx`` active, ``specs`` the leaves' storage specs) the
+    leaves are this rank's shards: each shard's sum counts once, summed
+    over the job.
+    """
+    if ctx is None or not ctx.active:
+        sums = [torch.sum(torch.square(piece.float())) for x in tree_leaves(tree)
+                for piece in x.reshape(-1).split(_PIECE)]
+        return torch.sqrt(torch.sum(torch.stack(sums)))
+    from repro_torch.models.collectives import reduce_raw
+
+    sums = [torch.sum(torch.stack([torch.sum(torch.square(piece.float())) for piece in x.reshape(-1).split(_PIECE)]))
+            for x in tree_leaves(tree)]
+
+    mesh = ctx.mesh
+    copies = [mesh.size // mesh.axis_size([a for d in range(len(sp)) for a in sp.axes(d)])
+              for sp in tree_leaves_specs(specs)]
+    local = torch.sum(torch.stack([v / c for v, c in zip(sums, copies)]))
+    return torch.sqrt(reduce_raw(local, ctx.group(mesh.axis_names)))
+
+
+def tree_leaves_specs(specs: Tree) -> list:
+    """The specs of a spec tree (nested dicts of ``PartitionSpec``), in the reference's leaf order."""
+    if isinstance(specs, tuple):
+        return [specs]
+    return [leaf for k in sorted(specs) for leaf in tree_leaves_specs(specs[k])]
 
 
 def _chunks(x: torch.Tensor, rows: int) -> Iterator[torch.Tensor]:
@@ -109,15 +139,24 @@ class AdamW:
             return self.learning_rate(step)
         return torch.tensor(self.learning_rate, dtype=torch.float32, device=step.device)
 
+    def state_specs(self, p_specs: Tree) -> OptState:
+        """The moments' specs (the params'), and the replicated count's."""
+        from repro_torch.models.module import PartitionSpec
+
+        return OptState(mu=p_specs, nu=p_specs, count=PartitionSpec())
+
     @torch.no_grad()
-    def update(self, grads: Tree, state: OptState, params: Tree) -> tuple[Tree, OptState, dict]:
+    def update(self, grads: Tree, state: OptState, params: Tree, ctx=None,
+               specs: Tree = None) -> tuple[Tree, OptState, dict]:
         """One step, in place. Returns (params, new state, metrics ``grad_norm`` and ``lr``).
 
         ``params`` and the moments of ``state`` are updated in place and
         returned; ``state.count`` is not touched (the new state holds count + 1).
+        Over a mesh (``ctx``, ``specs``: the params' specs) the leaves are
+        this rank's shards and the norm is the whole tree's.
         """
         count = state.count + 1
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, ctx, specs)
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / torch.clamp_min(gnorm, 1e-12), max=1.0)
         else:

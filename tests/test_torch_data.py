@@ -20,7 +20,7 @@ from repro.data.synthetic import SyntheticSpec as JSpec
 from repro.data.synthetic import synthetic_ratings as j_synthetic
 from repro_torch.bpmf import BPMFConfig, BPMFEngine, load_dataset
 from repro_torch.data import movielens, sparse
-from repro_torch.data.synthetic import SyntheticSpec, synthetic_ratings
+from repro_torch.data.synthetic import SyntheticSpec, sorted_unique, synthetic_ratings, weighted_choice
 
 
 def _coo(num_users, num_movies, nnz, seed):
@@ -40,6 +40,27 @@ def test_synthetic_copy_equals_reference(spec):
     for f in ("rows", "cols", "vals"):
         np.testing.assert_array_equal(getattr(ours, f), getattr(theirs, f))
     assert (ours.num_users, ours.num_movies) == (theirs.num_users, theirs.num_movies)
+
+
+@pytest.mark.parametrize("n,size,seed", [(1, 5, 0), (7, 1000, 1), (27_278, 200_000, 2)])
+def test_weighted_choice_equals_numpy(n, size, seed):
+    """The same draws as ``Generator.choice`` with ``p``, and the generator left in the same state."""
+    p = np.random.default_rng(seed).lognormal(sigma=1.0, size=n)
+    p /= p.sum()
+    ours, theirs = np.random.default_rng(seed + 10), np.random.default_rng(seed + 10)
+    got = weighted_choice(ours, p, size)
+    want = theirs.choice(n, size=size, p=p).astype(np.int64)
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, want)
+    assert ours.random() == theirs.random()
+
+
+@pytest.mark.parametrize("n,high", [(0, 5), (1, 5), (1000, 7), (100_000, 2**40)])
+def test_sorted_unique_equals_numpy(n, high):
+    keys = np.random.default_rng(n).integers(0, high, size=n, dtype=np.int64)
+    got = sorted_unique(keys)
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, np.unique(keys))
 
 
 @pytest.mark.parametrize("pads,seed", [((8, 32, 128), 0), ((4, 16), 3), ((8, 32, 128, 512, 2048), 1)])

@@ -48,7 +48,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.models import attention, mamba2, transformer
 from repro_torch.models.model import build_model
-from repro_torch.models.module import map_descs
+from repro_torch.models.module import NO_SHARDING, map_descs
 
 ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
@@ -77,18 +77,18 @@ def one_thread():
 
 
 def _attn_zeroed(real):
-    def apply(params, x, positions, cfg, cache=None):
-        y, new_cache = real(params, x, positions, cfg, cache)
+    def apply(params, x, positions, cfg, ctx=NO_SHARDING, cache=None):
+        y, new_cache = real(params, x, positions, cfg, ctx, cache)
         return (torch.zeros_like(y) if cache is not None and x.shape[1] == 1 else y), new_cache
 
     return transformer, "apply_attention", apply
 
 
 def _attn_own_slot(real):
-    def apply(params, x, positions, cfg, cache=None):
-        y, new_cache = real(params, x, positions, cfg, cache)
+    def apply(params, x, positions, cfg, ctx=NO_SHARDING, cache=None):
+        y, new_cache = real(params, x, positions, cfg, ctx, cache)
         if cache is not None and x.shape[1] == 1:
-            y, _ = real(params, x, positions, cfg, None)  # self-attention over the one token
+            y, _ = real(params, x, positions, cfg, ctx, None)  # self-attention over the one token
         return y, new_cache
 
     return transformer, "apply_attention", apply
@@ -102,8 +102,8 @@ def _S_reset(real):
 
 
 def _conv_unshifted(real):
-    def apply(params, x, cfg, state=None, return_state=False):
-        y, new_state = real(params, x, cfg, state, return_state)
+    def apply(params, x, cfg, ctx=NO_SHARDING, state=None, return_state=False):
+        y, new_state = real(params, x, cfg, ctx, state, return_state)
         if state is not None and x.shape[1] == 1:
             new_state = dataclasses.replace(new_state, conv=state.conv)
         return y, new_state
@@ -131,8 +131,8 @@ def _mla_no_rope_score(real):
 
 
 def _moe_top1(real):
-    def apply(params, x, cfg):
-        return real(params, x, cfg.replace(num_experts_per_tok=1) if x.shape[1] == 1 else cfg)
+    def apply(params, x, cfg, ctx=NO_SHARDING):
+        return real(params, x, cfg.replace(num_experts_per_tok=1) if x.shape[1] == 1 else cfg, ctx)
 
     return transformer, "apply_moe", apply
 

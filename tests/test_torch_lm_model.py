@@ -7,7 +7,8 @@ logits, prefill and decode, and one step's gradients within 1e-4 in f32;
 teacher-forced decode against forward within 2e-3 (the band of
 ``tests/test_archs.py``); reduced gemma in bf16 within 5e-2 of the largest
 logit. ``AdamW.update`` on equal grads within 1e-6, two microbatches equal
-to one within 1e-5. Parameter counts of the full configs from descriptors
+to one within 1e-5; a tied table's gradient over 64 bf16 loss chunks
+within 1e-4 on average (gemma-2b, mamba2-130m). Parameter counts of the full configs from descriptors
 (no allocation) and the registry. The MLA and MoE configs have their own
 files (``tests/test_torch_lm_mla.py``, ``tests/test_torch_lm_moe.py``).
 """
@@ -171,6 +172,42 @@ def _check_gradients(ref_model, model, ref_params, params, inputs, band: float) 
         assert g.shape == w.shape and str(g.dtype).split(".")[1] == str(w.dtype)
         w = np.asarray(w, np.float32)
         assert np.abs(g.float().numpy() - w).max() <= band * max(np.abs(w).max(), 1e-30)
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-130m"])
+def test_a_tied_head_sums_the_chunks_gradients_in_float32(arch, built, monkeypatch):
+    """bf16 activations, an f32 tied table, 64 loss chunks: the table's gradient from the head against
+    the reference's, whose scan sums each chunk's cotangent in f32: the mean |difference| within 1e-4
+    of the mean |gradient|, and the largest within 5e-3 of the largest entry.
+
+    The backbone is replaced by one fixed bf16 hidden state in both
+    packages, so the head is all that differs. Each chunk's bf16 product
+    may round one unit apart in the two packages, which the mean hardly
+    sees (it reads 2e-7 to 8e-7 here); a table cast to bf16 once for every
+    chunk sums their gradients in bf16 and reads 2.5e-3.
+    """
+    ref_model, model, ref_params, params, _ = built(arch, "bfloat16", "float32")
+    cfg, C, L = model.cfg, 4, 256
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab_size, (B, L)).astype(np.int32)
+    labels, mask = np.roll(tokens, -1, 1), np.ones((B, L), np.float32)
+    hidden = rng.normal(size=(B, L, cfg.d_model)).astype(np.float32)
+    ref_hidden = jnp.asarray(hidden).astype(jnp.bfloat16)
+
+    def ref_loss(table):
+        p = {**ref_params, "embed": {**ref_params["embed"], "tok": table}}
+        return ref_chunked_lm_loss(lambda h: ref_model.logits(p, h), ref_hidden, jnp.asarray(labels),
+                                   jnp.asarray(mask), chunk=C)[0]
+
+    want = np.asarray(jax.jit(jax.grad(ref_loss))(ref_params["embed"]["tok"]), np.float32)
+    monkeypatch.setattr(type(model), "hidden",
+                        lambda self, p, inputs, positions=None, ctx=None: (torch.from_numpy(hidden).bfloat16(), {}))
+    batch = {"inputs": torch.from_numpy(tokens), "labels": torch.from_numpy(labels), "mask": torch.from_numpy(mask)}
+    grads, _ = loss_and_grads(model, {"embed": params["embed"], "head": params["head"]}, batch, loss_chunk=C)
+    got = grads["embed"]["tok"]
+    assert got.dtype == torch.float32
+    diff = np.abs(got.numpy() - want)
+    assert diff.mean() <= 1e-4 * np.abs(want).mean() and diff.max() <= 5e-3 * np.abs(want).max()
 
 
 def test_adamw_update_matches_the_reference():
