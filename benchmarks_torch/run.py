@@ -10,12 +10,14 @@ the catalog of the committed file). Every driver runs in this process on
 ``--device`` (the card unless ``cpu`` is given; without a card and without
 ``--device cpu`` the harness raises before any section); fig4's process
 sweep spawns its own jobs. ``--only`` takes a comma list of ``fig2``,
-``fig3``, ``fig4``, ``fig5``, ``rmse``, ``merge``, ``serve`` and
-``throughput``. A section that raises is printed and named in the summary,
-and the harness then exits 1.
+``fig3``, ``fig4``, ``fig5``, ``rmse``, ``merge``, ``serve``,
+``throughput`` and ``roofline``. A section that raises is printed and named
+in the summary, and the harness then exits 1.
 
-The reference's ``roofline`` section aggregates the LM scaffold's dry-run
-files; it waits for that scaffold's port (ROADMAP Queue 1 item 11).
+``roofline`` aggregates the dry run's files (``experiments/dryrun_torch/``,
+``python -m repro_torch.launch.dryrun --all [--multi-pod]``) into the
+reference's table for both production meshes; it needs no card, so
+``--only roofline`` runs without one.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from benchmarks_torch import (
     fig5_overlap,
     fig_merge_comm,
     rmse_convergence,
+    roofline,
     serve_latency,
     sweep_throughput,
 )
@@ -67,7 +70,20 @@ SECTIONS: dict[str, tuple[str, Callable[[bool, object], str]]] = {
     "serve": ("serving latency and closed-loop load", _serve),
     "throughput": ("blocked sweep-loop throughput",
                    lambda smoke, dev: f"parity_ok {sweep_throughput.run(smoke=smoke, device=dev)['parity_ok']}"),
+    "roofline": ("dry-run aggregation, both production meshes", lambda smoke, dev: _roofline()),
 }
+NO_DEVICE = {"roofline"}  # sections that need no card
+
+
+def _roofline() -> str:
+    out = []
+    for mesh in ("pod16x16", "pod2x16x16"):
+        rows, md = roofline.table(mesh)
+        print(md)
+        if not rows:
+            raise RuntimeError(f"no dry-run cells under {roofline.DRYRUN_DIR}/{mesh}")
+        out.append(f"{mesh} {sum(r['status'] == 'ok' for r in rows)}/{len(rows)} cells ok")
+    return "; ".join(out)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -82,7 +98,7 @@ def main(argv: list[str] | None = None) -> int:
     unknown = sorted(set(only) - set(SECTIONS))
     if unknown:
         ap.error(f"unknown section(s) {unknown}; known: {','.join(SECTIONS)}")
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if set(only) - NO_DEVICE else None
 
     failures = []
     for name in only:

@@ -328,18 +328,6 @@ def device_ms(torch, fn, launches: int = 20) -> float:
     return start.elapsed_time(end) / launches
 
 
-def gram_work(nnz_total: int, B: int, Ns: int, K: int) -> tuple[float, float]:
-    """(bytes, flops) the Gram function needs for these inputs.
-
-    Bytes: each real rating's neighbor id and value once, nnz, X once, and
-    G and g written once. Flops: the K (K + 3) / 2 multiply-adds per rating
-    of the lower triangle of G (G is symmetric) and of g.
-    """
-    bytes_ = 8.0 * nnz_total + 4.0 * B + 4.0 * Ns * K + 4.0 * B * (K * K + K)
-    flops = float(nnz_total) * K * (K + 3)
-    return bytes_, flops
-
-
 def bound_ms(bytes_: float, flops: float) -> float:
     return 1e3 * max(bytes_ / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS)
 
@@ -420,19 +408,10 @@ def phase_kernel_shapes(torch, gram_kernel) -> None:
                 line["plain_ms"] = time_ms(
                     torch, lambda: gram_kernel.bpmf_gram_plain(X, nbr, val, nnz), 3 if big else 10)
                 line["bmm_contraction_only_ms"] = bmm_ms(torch, X, nbr, val, nnz, reps)
-                line["bound_ms"] = bound_ms(*gram_work(nnz_total, B, Ns, K))
+                line["bound_ms"] = bound_ms(*gram_kernel.gram_work(nnz_total, B, Ns, K))
             print(json.dumps(line), flush=True)
         del X, nbr, val, nnz
         torch.cuda.empty_cache()
-
-
-def fused_work(step, Ns: int, K: int) -> tuple[float, float]:
-    """(bytes, flops) one fused launch needs: each real rating's id and value,
-    X once, each chunk's item and count, and the running (G, g) row of every
-    live item read and written once; K (K + 3) flops per rating."""
-    ratings = float(step.cnt.sum())
-    bytes_ = 8.0 * ratings + 4.0 * Ns * K + 8.0 * step.cnt.shape[0] + 2 * 4.0 * (K * K + K) * step.num_rows
-    return bytes_, ratings * K * (K + 3)
 
 
 def fused_error(torch, got, want, step, alpha: float) -> tuple[float, float]:
@@ -464,7 +443,7 @@ def check_fused(torch, gram_kernel, X, step, cap: int, label: dict, full: bool) 
     prints one JSON line.
     """
     K = X.shape[1]
-    byt, fl = fused_work(step, X.shape[0], K)
+    byt, fl = gram_kernel.fused_work(float(step.cnt.sum()), step.cnt.shape[0], step.num_rows, X.shape[0], K)
     out = {}
     for cd in (torch.float32, torch.bfloat16) if full else (torch.float32,):
         def launch(G, g, fn=gram_kernel.bpmf_gram_fused):
@@ -646,7 +625,7 @@ def phase_ml20m(torch, gram_kernel, repro_torch_mods, ckpt_root: Path) -> dict:
             nnz = int(nnz_host.sum())
             W = gram_kernel.piece_width(b.B, b.P, sms)
             item, _, _, direct = gram_kernel.bucket_pieces(nnz_host, b.P, W)
-            byt, fl = gram_work(nnz, b.B, X.shape[0], X.shape[1])
+            byt, fl = gram_kernel.gram_work(nnz, b.B, X.shape[0], X.shape[1])
             line = {"phase": "ml20m_bucket", "side": name, "P": b.P, "B": b.B, "nnz": nnz,
                     "max_nnz": int(nnz_host.max()), "W": W, "working_blocks": int(item.shape[0]),
                     "split_items": len(set(item[~direct].tolist())),
@@ -1362,7 +1341,7 @@ def phase_merge_buckets(torch, gram_kernel, engine) -> dict:
                 "kernel_device_ms": device_ms(torch, lambda: gram_kernel.bpmf_gram(X, bk.nbr, bk.val, bk.nnz)),
                 "plain_ms": time_ms(torch, lambda: gram_kernel.bpmf_gram_plain(X, bk.nbr, bk.val, bk.nnz), 2),
                 "bmm_contraction_only_ms": bmm_ms(torch, X, bk.nbr, bk.val, bk.nnz, 5),
-                "bound_ms": bound_ms(*gram_work(nnz, bk.B, X.shape[0], X.shape[1])),
+                "bound_ms": bound_ms(*gram_kernel.gram_work(nnz, bk.B, X.shape[0], X.shape[1])),
             }), flush=True)
             torch.cuda.empty_cache()
     return {"max_abs_err": max_err}
@@ -2488,6 +2467,8 @@ def phase_lm_train(torch, arch: str, label: str, want_params: int, layers, steps
     print(json.dumps(line), flush=True)
     if not all(math.isfinite(x) for x in losses + gnorms) or not losses[-1] < losses[0]:
         raise AssertionError(f"{arch}: loss not finite and falling over {steps} steps: {losses}")
+    if arch == "gemma-2b":
+        phase_dryrun_gemma(torch, model, opt, state, batch, step_fn, step_s, card)
     del state, opt, metrics
     torch.cuda.empty_cache()
     return model, params
@@ -2606,6 +2587,141 @@ def run_lm_phases(torch, gram_kernel, card: str) -> dict:
     if any(launches.values()):
         raise AssertionError(f"the LM phases launched a Gram kernel: {launches}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The dry run held to the card (ROADMAP item 11e)
+# ---------------------------------------------------------------------------
+
+DRYRUN_PEAK_BAND = 0.10  # the step's max_memory_allocated over the dry run's peak_bytes_est, within 10%
+# production cells on pod16x16, traced by a child on the CPU (no card) while the card works
+DRYRUN_CELLS = (("gemma-2b", "train_4k"), ("gemma-2b", "decode_32k"), ("bpmf", "ring"), ("bpmf", "allgather"))
+DRYRUN_CELLS_TIMEOUT_S = 600
+
+
+def start_dryrun_cells(out: Path) -> subprocess.Popen:
+    """``DRYRUN_CELLS`` traced by ``launch.dryrun.run_cell`` in a child with no card, into ``out``."""
+    code = ("import sys; from repro_torch.launch.dryrun import run_cell; "
+            f"[run_cell(a, s, False, sys.argv[1]) for a, s in {DRYRUN_CELLS!r}]")
+    return subprocess.Popen([sys.executable, "-c", code, str(out)], env=child_env(CUDA_VISIBLE_DEVICES=""),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def phase_dryrun_cells(proc: subprocess.Popen, out: Path, card: str) -> None:
+    """``dryrun_cell``: one line per production cell of ``DRYRUN_CELLS`` (its trace_s, terms and HBM peak); each must be ok."""
+    try:
+        log = proc.communicate(timeout=DRYRUN_CELLS_TIMEOUT_S)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode:
+        raise AssertionError(f"the dry run's production cells failed ({proc.returncode}):\n{log[-3000:]}")
+    for arch, shape in DRYRUN_CELLS:
+        cell = json.loads((out / "pod16x16" / f"{arch}__{shape}.json").read_text())
+        if cell["status"] != "ok":
+            raise AssertionError(f"dry run {arch} {shape}: {cell['error']}\n{cell['traceback']}")
+        rf = cell["roofline"]
+        print(json.dumps({"phase": "dryrun_cell", "card": card, "arch": arch, "shape": cell["shape"],
+                          "mesh": cell["mesh"], "rank": cell["rank"], "trace_s": cell["trace_s"],
+                          "compute_s": rf["compute_s"], "memory_s": rf["memory_s"],
+                          "collective_s": rf["collective_s"], "dominant": rf["dominant"],
+                          "hbm_gb": rf["memory"]["peak_bytes_est"] / 1e9, "fits_hbm": rf["fits_hbm"],
+                          "note": "H100 datasheet predictions for one rank, not times"}), flush=True)
+
+
+def site_diff(a: dict, b: dict, n: int = 8) -> list:
+    """Up to n sites whose counts differ between two traces: [site, a, b]."""
+    return [[k, a.get(k), b.get(k)] for k in sorted(set(a) | set(b)) if a.get(k) != b.get(k)][:n]
+
+
+def phase_dryrun_gemma(torch, model, opt, state, batch, step_fn, step_s: float, card: str) -> None:
+    """``dryrun_gemma2b``: one more, untimed step of the one-process gemma-2b cell under the dry run's cost model.
+
+    Its flops, bytes, op count and op sites must equal the trace of the same
+    step on the ``meta`` device, and ``torch.cuda.max_memory_allocated`` over
+    the step (less what the process held besides the step's arguments) must
+    be within ``DRYRUN_PEAK_BAND`` of the trace's ``peak_bytes_est``. Prints
+    the trace's compute term against the measured step time.
+    """
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_analysis import OpCostModel
+    from repro_torch.training.train import abstract_batch, abstract_train_state, make_train_step
+
+    progress("dryrun_gemma2b")
+    t0 = time.perf_counter()
+    meta_args = (abstract_train_state(model, opt), abstract_batch(model.cfg, 1, LM_SEQ))
+    _, meta = dryrun.trace(make_train_step(model, opt), *meta_args)
+    trace_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - OpCostModel().arguments(state, batch)
+    torch.cuda.reset_peak_memory_stats()
+    state, real = dryrun.trace(step_fn, state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    est = meta.memory()["peak_bytes_est"]
+    compute_s = meta.flops / dryrun.H100["peak_flops"]
+    line = {"phase": "dryrun_gemma2b", "card": card, "layers": model.cfg.num_layers, "seq": LM_SEQ,
+            "trace_s": trace_s, "ops": [real.ops, meta.ops], "flops": [real.flops, meta.flops],
+            "bytes": [real.bytes, meta.bytes], "sites": len(meta.flops_by_site) + len(meta.bytes_by_site),
+            "site_diff": site_diff(real.flops_by_site, meta.flops_by_site)
+            + site_diff(real.bytes_by_site, meta.bytes_by_site),
+            "max_memory_allocated_gb": peak / 1e9, "peak_bytes_est_gb": est / 1e9, "peak_ratio": peak / est,
+            "peak_band": DRYRUN_PEAK_BAND, "memory": meta.memory(),
+            "compute_s_predicted": compute_s, "memory_s_predicted": meta.bytes / dryrun.H100["hbm_bw"],
+            "step_s_measured": step_s, "note": "predicted terms at the H100 datasheet rates, not times"}
+    print(json.dumps(line), flush=True)
+    same = (real.flops, real.bytes, real.ops) == (meta.flops, meta.bytes, meta.ops) and not line["site_diff"]
+    if not same:
+        raise AssertionError(f"gemma-2b: the step on the card is not the dry run's trace: {line}")
+    if not abs(peak / est - 1.0) <= DRYRUN_PEAK_BAND:
+        raise AssertionError(f"gemma-2b: max_memory_allocated {peak} against peak_bytes_est {est}")
+
+
+def phase_dryrun_ring(torch, engine, card: str) -> None:
+    """``dryrun_ring``: the dry run of each rank of the ML20M ring (abstract, on ``meta``) against one eager sweep.
+
+    The permute bytes of the S abstract ranks' traces must sum to the
+    ``rotate_bytes`` that ``benchmarks_torch.common.metered_sweep`` counts
+    for one real eager sweep of the same data on the card.
+    """
+    sys.path.insert(0, str(ROOT))
+    from benchmarks_torch.common import metered_sweep
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import bpmf_ring_from
+    from repro_torch.models.collectives import Mesh
+
+    progress("dryrun_ring")
+    b = engine.backend
+    S = b.ring.num_shards
+    meter = metered_sweep(engine)
+    t0 = time.perf_counter()
+    per_rank = []
+    for rank in range(S):
+        ring = bpmf_ring_from(Mesh.abstract((S,), ("ring",), rank=rank))
+        sweep, args = dryrun.bpmf_sweep(ring, dryrun.abstract_shard_of(b.data, rank), b.core_cfg)
+        _, cost = dryrun.trace(sweep, *args)
+        per_rank.append(sum(c["payload_bytes"] for c in cost.collectives if c["op"] == "collective-permute"))
+    line = {"phase": "dryrun_ring", "card": card, "num_shards": S, "permute_bytes_per_rank": per_rank,
+            "dry_run_permute_bytes": sum(per_rank), "metered_rotate_bytes": meter["rotate_bytes"],
+            "trace_s": time.perf_counter() - t0}
+    print(json.dumps(line), flush=True)
+    if sum(per_rank) != meter["rotate_bytes"] or not meter["rotate_bytes"]:
+        raise AssertionError(f"the dry run's ring bytes are not the metered sweep's: {line}")
+
+
+def dry_run_collectives(cfg, mesh, batch: int, seq: int) -> dict:
+    """Calls and payload bytes of the collectives in the dry run's trace of this rank's train step on ``mesh``."""
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.models.collectives import Mesh
+    from repro_torch.models.module import TRAIN_RULES
+
+    ab = Mesh.abstract(mesh.sizes, mesh.axis_names, rank=mesh.rank)
+    step, args, _ = dryrun.cell_step("gemma-2b", "train_4k", ab, rules_train=TRAIN_RULES, microbatches=1, cfg=cfg,
+                                     spec=ShapeSpec("gang", seq, batch, "train"))
+    _, cost = dryrun.trace(step, *args)
+    return {"calls": len(cost.collectives), "bytes": sum(c["payload_bytes"] for c in cost.collectives)}
 
 
 # ---------------------------------------------------------------------------
@@ -2906,6 +3022,7 @@ def mesh_gemma_rank(torch, tmp: Path, what: str) -> None:
         coll.append(dict(collectives.STATS))
     step_s = statistics.median(seconds[1:])
     tokens = GEMMA_MESH_BATCH * GEMMA_MESH_SEQ
+    dry = dry_run_collectives(cfg, mesh, GEMMA_MESH_BATCH, GEMMA_MESH_SEQ)
     line = {"phase": "lm_mesh_gemma2b_train", "rank": process_index(), "mesh": mesh.shape,
             "rules": "TRAIN_RULES", "layers": [cfg.num_layers, 18], "batch": [GEMMA_MESH_BATCH, GEMMA_MESH_SEQ],
             "gate_f32": gate, "band": LM_MESH_BAND, "bf16_losses": losses, "step_seconds": seconds,
@@ -2913,8 +3030,12 @@ def mesh_gemma_rank(torch, tmp: Path, what: str) -> None:
             "stored_bytes": stored, "one_process_bytes": ref["stored_bytes"],
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "collectives_per_step": {"calls": coll[-1]["calls"], "bytes": coll[-1]["bytes"],
-                                     "ms": coll[-1]["seconds"] * 1e3}}
+                                     "ms": coll[-1]["seconds"] * 1e3},
+            "dry_run_collectives": dry}
     print(json.dumps(line), flush=True)
+    if dry != {"calls": coll[-1]["calls"], "bytes": coll[-1]["bytes"]} or not dry["calls"]:
+        raise AssertionError(f"gemma-2b on mesh {mesh.shape}, rank {process_index()}: STATS of a step "
+                             f"{coll[-1]} are not the dry run's {dry}")
     errs = [gate["loss_rel_err"], gate["grad_norm_rel_err"], gate["mu_leaf_sums_rel_err"]]
     if not all(math.isfinite(e) and e <= LM_MESH_BAND for e in errs) or not all(map(math.isfinite, losses)):
         raise AssertionError(f"gemma-2b on mesh {mesh.shape}: the f32 step off the one process: {gate}")
@@ -3252,6 +3373,7 @@ def run_all(np, torch) -> int:
         phase_checkpoint(torch, np, gram_kernel, ring["engine"], ring, "ring_checkpoint", card)
     phase_profile(torch, ring["engine"], ring["steady_sweep_s"], "profile_one_ring_sweep")
     fused = phase_ring_layouts(torch, gram_kernel, ring["engine"])
+    phase_dryrun_ring(torch, ring["engine"], card)
     mp_root = Path(tempfile.mkdtemp(prefix="chip_smoke-mp-"))
     try:
         progress("multiproc")
@@ -3280,18 +3402,28 @@ def run_all(np, torch) -> int:
     print(json.dumps({"phase": "merge_wall_seconds", "ml20m_merge_phases": merge["seconds"],
                       "small_task_with_merges": time.perf_counter() - t_small}), flush=True)
 
-    progress("bench drivers")
-    t_bench = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke-bench-") as bench_tmp:
-        bench = phase_bench_drivers(torch, gram_kernel, Path(bench_tmp), card)
-        progress("examples")
-        t_examples = time.perf_counter()
-        examples = phase_examples(gram_kernel, Path(bench_tmp), card)
-    print(json.dumps({"phase": "autotune_wall_seconds", "autotune_ring": tuned_s,
-                      "bench_drivers": t_examples - t_bench,
-                      "examples": time.perf_counter() - t_examples}), flush=True)
-    lm_launches = run_lm_phases(torch, gram_kernel, card)
-    run_lm_mesh_phases(torch, gram_kernel, card)
+    dry_out = Path(tempfile.mkdtemp(prefix="chip_smoke-dryrun-"))
+    dry_cells = start_dryrun_cells(dry_out)  # on the CPU, beside the card's phases
+    try:
+        progress("bench drivers")
+        t_bench = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-bench-") as bench_tmp:
+            bench = phase_bench_drivers(torch, gram_kernel, Path(bench_tmp), card)
+            progress("examples")
+            t_examples = time.perf_counter()
+            examples = phase_examples(gram_kernel, Path(bench_tmp), card)
+        print(json.dumps({"phase": "autotune_wall_seconds", "autotune_ring": tuned_s,
+                          "bench_drivers": t_examples - t_bench,
+                          "examples": time.perf_counter() - t_examples}), flush=True)
+        lm_launches = run_lm_phases(torch, gram_kernel, card)
+        run_lm_mesh_phases(torch, gram_kernel, card)
+        progress("dryrun_cells")
+        phase_dryrun_cells(dry_cells, dry_out, card)
+    finally:
+        if dry_cells.poll() is None:
+            dry_cells.kill()
+            dry_cells.wait()
+        shutil.rmtree(dry_out, ignore_errors=True)
 
     phase_yardsticks(ml["gram"], fused)
     gram = ml["gram"]

@@ -325,6 +325,13 @@ class Ring:
             rank of the ``torch.distributed`` job, and this process holds
             shards ``[shard_offset, shard_offset + len(devices))``.
         shard_offset: This process's first shard.
+        abstract: The dry run's ring of rank ``shard_offset`` (devices
+            ``["meta"]``, one shard a rank), with no processes behind it:
+            a hand-over returns a ``meta`` buffer of the sent shape and a
+            gather ``meta`` blocks, each recorded with the active
+            ``launch.op_analysis.OpCostModel`` (a collective-permute, an
+            all-gather over the ring) and counted in
+            ``rotation_bytes_sent`` / ``gather_bytes_sent``; nothing moves.
 
     ``host_bytes`` and ``host_seconds`` count what crossed processes
     through host memory under ``gloo``: the bytes copied to and from the
@@ -336,7 +343,7 @@ class Ring:
     """
 
     def __init__(self, devices: Sequence[torch.device | str], num_shards: int | None = None,
-                 shard_offset: int = 0):
+                 shard_offset: int = 0, abstract: bool = False):
         if not devices:
             raise ValueError("a ring needs at least one shard device")
         self.devices = tuple(_indexed(torch.device(d)) for d in devices)
@@ -347,7 +354,11 @@ class Ring:
             raise ValueError(f"{L} local shards from shard {shard_offset} do not tile a ring of {self.num_shards}")
         self.num_processes = self.num_shards // L
         self.rank = self.shard_offset // L
-        if self.num_processes > 1 and (process_count(), process_index()) != (self.num_processes, self.rank):
+        self.abstract = abstract
+        if abstract and self.devices != (torch.device("meta"),):
+            raise ValueError(f"an abstract ring holds one meta shard, got {self.devices}")
+        if not abstract and self.num_processes > 1 and (process_count(), process_index()) != (
+                self.num_processes, self.rank):
             raise RuntimeError(
                 f"a ring over {self.num_processes} processes needs rank {self.rank} of a "
                 f"{self.num_processes}-process job (init_multiprocess); this is rank "
@@ -359,6 +370,11 @@ class Ring:
         self.host_seconds = 0.0
         self.rotation_bytes_sent = 0
         self.gather_bytes_sent = 0
+
+    def _record(self, op: str, x: torch.Tensor) -> None:
+        from repro_torch.launch.op_analysis import record_collective
+
+        record_collective(op, x.nbytes, ("ring",), self.num_shards, range(self.num_shards))
 
     @property
     def spans_processes(self) -> bool:
@@ -387,7 +403,7 @@ class Ring:
         return out
 
     def _staged(self) -> bool:
-        return self.spans_processes and _stages_through_host(self.home)
+        return self.spans_processes and not self.abstract and _stages_through_host(self.home)
 
     def stage(self, bufs: Sequence[InFlight]) -> list[InFlight]:
         """The buffers with pinned host copies attached, when they will cross processes through the host.
@@ -456,7 +472,11 @@ class Ring:
         if not self.spans_processes:
             return [x]
         t0 = time.perf_counter()
-        out = all_gather_blocks(x)
+        if self.abstract:
+            self._record("all-gather", x)
+            out = [torch.empty_like(x) for _ in range(self.num_processes)]
+        else:
+            out = all_gather_blocks(x)
         self.gather_bytes_sent += x.nbytes * (self.num_processes - 1)
         if _stages_through_host(x.device):
             self.host_bytes += x.nbytes * (1 + self.num_processes)
@@ -501,6 +521,9 @@ class Ring:
             send = self.take(buf)
             recv = torch.empty_like(send)
         self.rotation_bytes_sent += send.nbytes
+        if self.abstract:
+            self._record("collective-permute", send)
+            return InFlight(recv)
         works = torch.distributed.batch_isend_irecv([
             torch.distributed.P2POp(torch.distributed.isend, send, nxt, tag=self._tag),
             torch.distributed.P2POp(torch.distributed.irecv, recv, prv, tag=self._tag),
@@ -842,7 +865,7 @@ def _place_side(side: RingSide, opp_cap: int, ring: Ring, cfg: BPMFConfig | None
         plans = tuple(
             tuple(
                 ops.plan_step(bs, opp_cap, cfg.K, side.cap, compute_dtype=cfg.compute_dtype,
-                              gram_impl=cfg.gram_impl, backend=devs[d].type) if bs else None
+                              gram_impl=cfg.gram_impl, backend=ops.key_backend(devs[d].type)) if bs else None
                 for d, bs in enumerate(per_step)
             )
             for per_step in steps

@@ -26,6 +26,13 @@ gives the per-bucket kernel's piece of at most ``PIECE_RATINGS`` ratings
 runs of at most ``PIECE_RATINGS // pc`` chunks, once per layout. Scratch
 for the pieces' partial sums is allocated here with ``torch.empty``.
 
+On a ``meta`` tensor (the dry run, :mod:`repro_torch.launch.dryrun`) each
+op is a shape path for analysis: it returns outputs of the right shapes,
+launches nothing, computes nothing, and charges its kernel's own work
+(:func:`gram_work`, :func:`fused_work`) to the active cost model. A
+``meta`` tensor never reaches a kernel, and a CUDA tensor never reaches
+the shape path.
+
 ``LAUNCHES`` / ``FUSED_LAUNCHES`` count calls of the ops that launch a
 kernel (one per bucket, one per ring step and shard), ``REDUCE_LAUNCHES``
 / ``FUSED_REDUCE_LAUNCHES`` their second passes, and ``PLAIN_CALLS`` /
@@ -57,6 +64,34 @@ MAX_K = 128
 # in a bucket too small to fill the card, see piece_width).
 PIECE_RATINGS = 2048
 MIN_PIECE_RATINGS = 256  # four 64-row tiles
+
+
+def gram_work(nnz_total: int, B: int, Ns: int, K: int) -> tuple[float, float]:
+    """(bytes, flops) the per-bucket Gram function needs for these inputs (``chip_smoke.py``'s bound).
+
+    Bytes: each rating's neighbor id and value once, ``nnz``, ``X`` once,
+    ``G`` and ``g`` written once. Flops: the K (K + 3) / 2 multiply-adds a
+    rating adds to the lower triangle of G and to g.
+    """
+    bytes_ = 8.0 * nnz_total + 4.0 * B + 4.0 * Ns * K + 4.0 * B * (K * K + K)
+    return bytes_, float(nnz_total) * K * (K + 3)
+
+
+def fused_work(ratings: int, chunks: int, num_rows: int, Ns: int, K: int) -> tuple[float, float]:
+    """(bytes, flops) one fused launch needs for these inputs (``chip_smoke.py``'s bound).
+
+    Each rating's id and value, ``X`` once, each chunk's item and count,
+    and the running ``(G, g)`` row of every live item read and written
+    once; K (K + 3) flops per rating.
+    """
+    bytes_ = 8.0 * ratings + 4.0 * Ns * K + 8.0 * chunks + 2 * 4.0 * (K * K + K) * num_rows
+    return bytes_, float(ratings) * K * (K + 3)
+
+
+def _charge(name: str, work: tuple[float, float]) -> None:
+    from repro_torch.launch.op_analysis import charge_kernel
+
+    charge_kernel(name, work[1], work[0])
 
 
 def _round(x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
@@ -183,8 +218,12 @@ def bpmf_gram(
     """
     if X.device.type == "cpu":
         return bpmf_gram_plain(X, nbr, val, nnz, compute_dtype)
+    if X.device.type == "meta":  # the dry run's shape path: every slot a rating, the most the shapes allow
+        (B, P), (Ns, K) = nbr.shape, X.shape
+        _charge("bpmf_gram", gram_work(B * P, B, Ns, K))
+        return X.new_empty((B, K, K)), X.new_empty((B, K))
     if X.device.type != "cuda":
-        raise ValueError(f"bpmf_gram runs on CPU or CUDA tensors, got {X.device}")
+        raise ValueError(f"bpmf_gram runs on CPU, CUDA or meta tensors, got {X.device}")
     _check(X, nbr, val, nnz, compute_dtype)
     if piece is not None and piece < 1:
         raise ValueError(f"a piece holds at least one rating, got piece={piece}")
@@ -450,8 +489,12 @@ def bpmf_gram_fused(
     """
     if X.device.type == "cpu":
         return bpmf_gram_fused_plain(G, g, X, nbr, val, item, cnt, alpha, compute_dtype, order)
+    if X.device.type == "meta":  # the dry run's shape path: every slot a rating, every chunk its own row
+        (C, pc), (Ns, K) = nbr.shape, X.shape
+        _charge("bpmf_gram_fused", fused_work(C * pc, C, min(C, G.shape[0]), Ns, K))
+        return G, g
     if X.device.type != "cuda":
-        raise ValueError(f"bpmf_gram_fused runs on CPU or CUDA tensors, got {X.device}")
+        raise ValueError(f"bpmf_gram_fused runs on CPU, CUDA or meta tensors, got {X.device}")
     _check_fused(G, g, X, nbr, val, item, cnt, compute_dtype)
     order = order if order is not None else chunk_order(item, cnt)
     if order.num_rows == 0:

@@ -68,7 +68,8 @@ def bpmf_gram(
         raise ValueError(f"unknown impl {impl!r}; one of {'|'.join(GRAM_IMPLS)}")
     if impl == "auto":
         B, P = nbr.shape
-        dec = autotune.decide(autotune.bucket_key(B, P, X.shape[0], X.shape[1], compute_dtype, X.device.type))
+        dec = autotune.decide(autotune.bucket_key(B, P, X.shape[0], X.shape[1], compute_dtype,
+                                                  key_backend(X.device.type)))
         impl, piece = dec.impl, piece or dec.piece
     if impl == "xla":
         if X.device.type != "cpu":
@@ -78,6 +79,11 @@ def bpmf_gram(
             )
         return gram_kernel.bpmf_gram_plain(X, nbr, val, nnz, compute_dtype)
     return gram_kernel.bpmf_gram(X, nbr, val, nnz, compute_dtype, piece)
+
+
+def key_backend(device_type: str) -> str:
+    """The autotune backend of a device type: ``meta`` (the dry run) decides as the card does."""
+    return "cuda" if device_type == "meta" else device_type
 
 
 def _pad_rows(x: torch.Tensor, multiple: int, fill: int = 0) -> torch.Tensor:
@@ -135,12 +141,12 @@ class FusedStep:
     val: torch.Tensor  # [C, pc] float32
     item: torch.Tensor  # [C] int32, -1 = dead chunk
     cnt: torch.Tensor  # [C] int32
-    order: gram_kernel.ChunkOrder
+    order: gram_kernel.ChunkOrder | None  # None on the meta device (the dry run)
 
     @property
     def num_rows(self) -> int:
-        """Destination rows with a live chunk; 0 means the step launches nothing."""
-        return self.order.num_rows
+        """Destination rows with a live chunk; 0 means the step launches nothing (on ``meta``: the chunks)."""
+        return self.order.num_rows if self.order is not None else self.item.shape[0]
 
 
 def fused_step(buckets, pc: int = FUSED_PC, tb: int = FUSED_TB) -> FusedStep:
@@ -151,6 +157,8 @@ def fused_step(buckets, pc: int = FUSED_PC, tb: int = FUSED_TB) -> FusedStep:
     size as the per-bucket kernel's.
     """
     nbr, val, item, cnt = flatten_step(buckets, pc, tb)
+    if item.device.type == "meta":  # the dry run: the order reads the layout's values
+        return FusedStep(nbr, val, item, cnt, None)
     piece_chunks = max(1, gram_kernel.PIECE_RATINGS // pc)
     return FusedStep(nbr, val, item, cnt, gram_kernel.chunk_order(item, cnt, piece_chunks))
 
@@ -260,7 +268,7 @@ def bpmf_gram_step(
     if plan is None:
         Ns, K = X_src.shape
         plan = plan_step(buckets, Ns, K, G.shape[0], compute_dtype=compute_dtype, gram_impl=gram_impl,
-                         backend=X_src.device.type)
+                         backend=key_backend(X_src.device.type))
     if plan.fused:
         layout = plan.layout
         return gram_kernel.bpmf_gram_fused(

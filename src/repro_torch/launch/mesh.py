@@ -10,8 +10,15 @@ all on its own device.
 
 :func:`make_host_mesh` is the LM's ``("data", "model")`` mesh over the
 job's ranks (one rank outside a job), as the reference's over whatever
-devices exist. ``make_production_mesh`` and ``bpmf_ring_from`` wait for
-the dry run (ROADMAP Queue 1 item 11e).
+devices exist. :func:`make_production_mesh` (the reference's 16 x 16 and
+2 x 16 x 16 meshes) and :func:`bpmf_ring_from` (that mesh flattened into
+the BPMF ring) are abstract, seen from one rank: what the dry run
+(:mod:`repro_torch.launch.dryrun`, ROADMAP Queue 1 item 11e) traces.
+
+Axes, as the reference names them: ``pod`` (across pods: data
+parallelism only), ``data`` (within-pod data parallelism and the
+FSDP-style weight storage split), ``model`` (tensor parallelism and the
+sequence-split KV caches at decode).
 """
 from __future__ import annotations
 
@@ -38,6 +45,27 @@ def make_host_mesh(model: int = 1) -> Mesh:
     if n % model:
         raise ValueError(f"model-parallel {model} does not divide the job's {n} processes")
     return Mesh.create((n // model, model), ("data", "model"))
+
+
+def make_production_mesh(multi_pod: bool = False, rank: int = 0) -> Mesh:
+    """The reference's production mesh, abstract and seen from ``rank``.
+
+    ``(16, 16)`` over ``("data", "model")``, or with ``multi_pod``
+    ``(2, 16, 16)`` over ``("pod", "data", "model")``: the reference's
+    shapes, so per-rank shapes compare with the reference's.
+    """
+    if multi_pod:
+        return Mesh.abstract((2, 16, 16), ("pod", "data", "model"), rank=rank)
+    return Mesh.abstract((16, 16), ("data", "model"), rank=rank)
+
+
+def bpmf_ring_from(mesh: Mesh) -> Ring:
+    """The abstract BPMF ring of ``mesh.size`` shards, seen from ``mesh.rank`` (paper §IV: ranks on one ring).
+
+    The ring holds one ``meta`` shard, ``shard_offset = mesh.rank``; its
+    hand-overs and gathers record what they would move and move nothing.
+    """
+    return Ring(["meta"], num_shards=mesh.size, shard_offset=mesh.rank, abstract=True)
 
 
 def bpmf_ring(num_shards: int = 0, device: str | torch.device | None = None) -> Ring:

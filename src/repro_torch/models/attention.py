@@ -222,8 +222,11 @@ def rolling_slot_positions(next_pos: torch.Tensor, window: int) -> torch.Tensor:
 
 
 def _narrow_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched product of two bf16/fp16 operands, summed and returned in float32."""
-    if a.is_cuda:
+    """Batched product of two bf16/fp16 operands, summed and returned in float32.
+
+    A ``meta`` tensor (the dry run) takes the card's route.
+    """
+    if a.device.type in ("cuda", "meta"):
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())  # the narrow products are exact in float32
 

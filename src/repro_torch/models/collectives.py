@@ -30,8 +30,16 @@ killed the rank (``scripts/lm_mesh_probe.py``). Sums of ``bfloat16`` and
 ``float16`` tensors run in float32. :data:`STATS` counts every
 collective's calls, payload bytes and host seconds.
 
-A mesh made by :meth:`Mesh.abstract` has a shape and no ranks: enough to
-resolve specs.
+A mesh made by :meth:`Mesh.abstract` has a shape and one rank's point of
+view (rank 0 unless given) and no processes behind it: enough to resolve
+specs and to trace that rank's step on the ``meta`` device for the dry run
+(:mod:`repro_torch.launch.dryrun`). Its groups are abstract: each
+collective there does the local work it does on a real group, returns a
+tensor of the shape the group would give (an all-gather the dim times the
+group's size, a reduce-scatter one block, an all-reduce the same shape),
+records its op, payload bytes and group with the active
+:class:`~repro_torch.launch.op_analysis.OpCostModel`, and moves nothing.
+:data:`STATS` counts only what really runs.
 """
 from __future__ import annotations
 
@@ -58,8 +66,10 @@ class AxisGroup:
     position along them, major to minor. A group of size 1 moves nothing.
     """
 
-    def __init__(self, axes: tuple[str, ...], size: int, index: int, pg=None):
+    def __init__(self, axes: tuple[str, ...], size: int, index: int, pg=None, members: tuple[int, ...] = (),
+                 abstract: bool = False):
         self.axes, self.size, self.index, self.pg = axes, size, index, pg
+        self.members, self.abstract = members, abstract
 
     def __repr__(self) -> str:
         return f"AxisGroup(axes={self.axes}, size={self.size}, index={self.index})"
@@ -83,9 +93,12 @@ class Mesh:
         self._groups: dict[tuple[str, ...], AxisGroup] = {}
 
     @classmethod
-    def abstract(cls, sizes: Sequence[int], names: Sequence[str]) -> "Mesh":
-        """A mesh of this shape with no ranks behind it."""
-        return cls(sizes, names)
+    def abstract(cls, sizes: Sequence[int], names: Sequence[str], rank: int = 0) -> "Mesh":
+        """A mesh of this shape seen from ``rank``, with no processes behind it (abstract groups)."""
+        mesh = cls(sizes, names, rank=rank)
+        if not 0 <= rank < mesh.size:
+            raise ValueError(f"rank {rank} is not a rank of a mesh of shape {mesh.sizes}")
+        return mesh
 
     @classmethod
     def create(cls, sizes: Sequence[int], names: Sequence[str]) -> "Mesh":
@@ -165,8 +178,10 @@ class Mesh:
         axes = self.ordered(axes)
         if not axes:
             return AxisGroup((), 1, 0)
-        if self.is_abstract:
-            raise RuntimeError("an abstract mesh has no ranks to communicate with")
+        if self.is_abstract and axes not in self._groups:
+            members = next(m for m in self._partition(axes) if self.rank in m)
+            self._groups[axes] = AxisGroup(axes, len(members), self.axis_index(axes), members=tuple(members),
+                                           abstract=True)
         return self._groups[axes]
 
     def __repr__(self) -> str:
@@ -185,6 +200,13 @@ def _count(x: torch.Tensor, t0: float) -> None:
     STATS["seconds"] += time.perf_counter() - t0
 
 
+def _record(op: str, x: torch.Tensor, group: AxisGroup) -> None:
+    """An abstract group's collective: recorded with the dry run's cost model, ``x``'s bytes as its payload."""
+    from repro_torch.launch.op_analysis import record_collective
+
+    record_collective(op, x.nbytes, group.axes, group.size, group.members)
+
+
 def gather_raw(x: torch.Tensor, dim: int, group: AxisGroup) -> torch.Tensor:
     """The ranks' blocks of ``x`` concatenated along ``dim`` in the group's order; no autograd."""
     if group.size == 1:
@@ -192,20 +214,28 @@ def gather_raw(x: torch.Tensor, dim: int, group: AxisGroup) -> torch.Tensor:
     t0 = time.perf_counter()
     send = x.contiguous()
     outs = [torch.empty_like(send) for _ in range(group.size)]
-    torch.distributed.all_gather(outs, send, group=group.pg)
+    if group.abstract:
+        _record("all-gather", x, group)
+    else:
+        torch.distributed.all_gather(outs, send, group=group.pg)
     out = torch.cat(outs, dim=dim)
-    _count(x, t0)
+    if not group.abstract:
+        _count(x, t0)
     return out
 
 
-def reduce_raw(x: torch.Tensor, group: AxisGroup, op=None) -> torch.Tensor:
+def reduce_raw(x: torch.Tensor, group: AxisGroup, op=None, _as: str = "all-reduce") -> torch.Tensor:
     """The sum (or ``op``) of the ranks' ``x``, on every rank of the group; no autograd."""
     if group.size == 1:
         return x
     t0 = time.perf_counter()
     buf = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x.clone()
-    torch.distributed.all_reduce(buf, op=torch.distributed.ReduceOp.SUM if op is None else op, group=group.pg)
-    _count(x, t0)
+    if group.abstract:
+        _record(_as, x, group)
+    else:
+        torch.distributed.all_reduce(buf, op=torch.distributed.ReduceOp.SUM if op is None else op,
+                                     group=group.pg)
+        _count(x, t0)
     return buf.to(x.dtype)
 
 
@@ -220,11 +250,12 @@ def _block(x: torch.Tensor, dim: int, group: AxisGroup) -> torch.Tensor:
 def reduce_scatter_raw(x: torch.Tensor, dim: int, group: AxisGroup) -> torch.Tensor:
     """The sum of the ranks' ``x``, this rank's block along ``dim``; no autograd.
 
-    A sum and a slice, since not every ``gloo`` build has the fused collective.
+    A sum and a slice, since not every ``gloo`` build has the fused collective
+    (an abstract group records it as a reduce-scatter).
     """
     if group.size == 1:
         return x
-    return _block(reduce_raw(x, group), dim, group).contiguous()
+    return _block(reduce_raw(x, group, _as="reduce-scatter"), dim, group).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +313,9 @@ def all_reduce(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
 
 def all_reduce_max(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
     """The group's elementwise max, without a gradient (a softmax's shift)."""
-    return reduce_raw(x.detach(), group, torch.distributed.ReduceOp.MAX) if group.size > 1 else x.detach()
+    if group.size == 1:
+        return x.detach()
+    return reduce_raw(x.detach(), group, None if group.abstract else torch.distributed.ReduceOp.MAX)
 
 
 def local_slice(x: torch.Tensor, dim: int, group: AxisGroup) -> torch.Tensor:

@@ -13,9 +13,9 @@ the caches by their logical axes (``_kv_axes``, ``_mla_axes``,
 ctx=...)`` make this rank's shards, and the forward passes take a
 :class:`~repro_torch.models.module.ShardingCtx` and this rank's rows of the
 batch (``ctx.rows``); ``logits`` are then this rank's block of the
-vocabulary. ``abstract_cache`` waits for the dry run (item 11e).
-``abstract`` gives the param tree on the ``meta`` device, with no
-allocation.
+vocabulary. ``abstract`` and ``abstract_cache`` give the param and cache
+trees on the ``meta`` device, with no allocation (this rank's shards with a
+``ctx``): what the dry run (item 11e) traces.
 
 ``build_model`` builds every config: the attention family (dense, vlm,
 encoder, MLA, MoE), the SSM family (mamba2-130m) and the hybrid
@@ -198,6 +198,17 @@ class LMModel:
                                            device=device),
             transformer.init_caches(self.cfg, batch, max_len, "meta"),
             self.cache_specs(ctx.rules, ctx.mesh, batch, max_len))
+
+    def abstract_cache(self, batch: int, max_len: int, ctx: ShardingCtx = NO_SHARDING) -> Optional[Tree]:
+        """:meth:`init_cache`'s tree on the ``meta`` device (``None`` for an encoder); over a mesh (``ctx``),
+        this rank's shard of it."""
+        abstract = transformer.abstract_caches(self.cfg, batch, max_len)
+        if not ctx.active:
+            return abstract
+        return _map_cache(
+            lambda leaf, spec: torch.empty(local_shape(tuple(leaf.shape), spec, ctx.mesh), dtype=leaf.dtype,
+                                           device="meta"),
+            abstract, self.cache_specs(ctx.rules, ctx.mesh, batch, max_len))
 
     def cache_specs(self, rules: ShardingRules, mesh: Any, batch: int, max_len: int) -> Optional[Tree]:
         """The spec tree matching ``init_cache``'s structure (``None`` for an encoder)."""

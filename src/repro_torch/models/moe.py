@@ -80,12 +80,22 @@ def _route(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
     return logits, probs, top_p / top_p.sum(dim=-1, keepdim=True), top_e
 
 
+def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` in ``dtype``, as one zero fill and one scatter on every device.
+
+    ``F.one_hot`` reads the indices' min and max back to the host on the CPU
+    and builds the rows another way on ``meta``; this is what it runs on
+    the card, with no host read anywhere.
+    """
+    return torch.zeros((*idx.shape, n), dtype=dtype, device=idx.device).scatter_(-1, idx.unsqueeze(-1), 1)
+
+
 def _slots(top_e: torch.Tensor, E: int, C: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(slot [N, K, g] of each pick within its expert, keep [N, K, g]): the rank of the pick among
     the group's picks of the same expert, all k = 0 picks before all k = 1, in token order."""
     N, g, K = top_e.shape
     picks = top_e.transpose(1, 2).reshape(N, K * g)  # [N, K*g] in priority order
-    onehot = F.one_hot(picks, E).to(torch.int32)  # [N, K*g, E]
+    onehot = _one_hot(picks, E, torch.int32)  # [N, K*g, E]
     rank = (torch.cumsum(onehot, dim=1) - onehot).gather(2, picks[..., None])[..., 0]
     return rank.view(N, K, g), (rank < C).view(N, K, g)
 
@@ -127,7 +137,7 @@ def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig,
     y = ctx.psum((picked.float() * w[..., None].float()).sum(dim=1), ctx.weight_axes(d["w_down"], 1)).to(ad)
 
     me = probs.mean(dim=1)  # [N, E] mean router prob per expert
-    ce = F.one_hot(top_e[..., 0], E).float().mean(dim=1)  # [N, E] share of top-1 picks
+    ce = _one_hot(top_e[..., 0], E, torch.float32).mean(dim=1)  # [N, E] share of top-1 picks
     kept = keep.sum(dim=(1, 2)).float().to(ad)  # the reference sums its 0/1 dispatch in ad
     metrics = {
         "aux_loss": (E * (me * ce).sum(dim=-1)).mean(),

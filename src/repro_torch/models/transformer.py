@@ -409,3 +409,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     if cfg.attention == "mla":
         return _stack([init_mla_cache(cfg, batch, max_len, device=device)] * cfg.num_layers)
     return _stack([init_kv_cache(cfg, batch, max_len, device=device)] * cfg.num_layers)
+
+
+def abstract_caches(cfg: ModelConfig, batch: int, max_len: int) -> Optional[Tree]:
+    """The cache tree of :func:`init_caches` on the ``meta`` device, for the dry run (``None`` for an encoder)."""
+    return init_caches(cfg, batch, max_len, "meta")

@@ -70,6 +70,21 @@ def init_train_state(key: torch.Tensor, model: LMModel, optimizer: AdamW,
     return TrainState(params=params, opt=optimizer.init(params), step=step)
 
 
+def abstract_train_state(model: LMModel, optimizer: AdamW, rules: ShardingRules = TRAIN_RULES,
+                         mesh: Any = None) -> TrainState:
+    """The :class:`TrainState` on the ``meta`` device, for the dry run: params, moments and the step.
+
+    With a ``mesh``, this rank's shards of them (what
+    ``init_train_state(..., rules=, mesh=)`` makes); no storage is allocated.
+    """
+    params = model.abstract()
+    if mesh is not None:
+        params = tree_map(lambda p, sp: torch.empty(local_shape(tuple(p.shape), sp, mesh), dtype=p.dtype,
+                                                    device="meta"), params, model.specs(rules, mesh))
+    return TrainState(params=params, opt=optimizer.init(params),
+                      step=torch.zeros((), dtype=torch.int32, device="meta"))
+
+
 def abstract_batch(cfg: ModelConfig, batch: int, seq: int) -> dict:
     """One training batch on the ``meta`` device: shapes and dtypes, no storage."""
     meta = lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta")
@@ -162,6 +177,7 @@ def loss_and_grads(model: LMModel, params: Tree, batch: dict, microbatches: int 
             grads, m = one({k: v[i * n : (i + 1) * n] for k, v in batch.items()})
             grads = [g.float() for g in grads]
             acc = grads if acc is None else [a.add_(g) for a, g in zip(acc, grads)]
+            del grads  # not held through the next microbatch's backward (one gradient copy less)
             mets.append(m)
         flat = [a / microbatches for a in acc]
         metrics = {k: torch.stack([m[k] for m in mets]).mean() for k in mets[0]}
@@ -188,10 +204,17 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         grads, metrics = loss_and_grads(model, state.params, batch, microbatches, z_weight, loss_chunk, ctx, specs)
-        params, opt, opt_metrics = optimizer.update(grads, state.opt, state.params, ctx, specs)
-        return TrainState(params=params, opt=opt, step=state.step + 1), {**metrics, **opt_metrics}
+        state, opt_metrics = apply_update(optimizer, grads, state, ctx, specs)
+        return state, {**metrics, **opt_metrics}
 
     return train_step
+
+
+def apply_update(optimizer: AdamW, grads: Tree, state: TrainState, ctx: ShardingCtx = NO_SHARDING,
+                 specs: Tree = None) -> tuple[TrainState, dict]:
+    """The train step's tail: ``optimizer.update`` (in place) and the step count; (state, ``grad_norm`` and ``lr``)."""
+    params, opt, opt_metrics = optimizer.update(grads, state.opt, state.params, ctx, specs)
+    return TrainState(params=params, opt=opt, step=state.step + 1), opt_metrics
 
 
 def jit_train_step(

@@ -15,7 +15,11 @@ and this process runs the reference unsharded on the same params and batch:
 * a prefill under ``SERVE_RULES`` (the KV cache split along the sequence)
   and 4 decode steps under ``DECODE_RULES``: the logits of each step, the
   greedy tokens and the gathered cache match the reference's prefill and
-  decode.
+  decode;
+* for gemma-2b, each rank's ``collectives.STATS`` (calls and payload bytes)
+  over the ``TRAIN_RULES`` step and the first decode step equal the dry
+  run's trace of that rank (``repro_torch.launch.dryrun``, an abstract
+  mesh on the ``meta`` device), exactly.
 
 The band is 1e-4 relative to the largest magnitude of each compared array.
 Meanwhile ``python -m repro_torch.launch.multiproc --num-processes 2 --
@@ -74,6 +78,10 @@ from repro_torch.models.module import flatten_descs, gather_full, local_shape, s
 from repro_torch.training.lm_serve import gather_logits, make_decode_step, make_prefill_step
 from repro_torch.training.optimizer import AdamW, OptState, tree_leaves, tree_leaves_specs, tree_map
 from repro_torch.training.train import TrainState, jit_train_step
+from repro_torch.configs.registry import ShapeSpec
+from repro_torch.launch import dryrun
+from repro_torch.models import collectives
+from repro_torch.models.collectives import Mesh
 
 torch.set_num_threads(1)
 init_multiprocess(device="cpu", timeout_s=120)
@@ -82,6 +90,7 @@ data = np.load(sys.argv[1])
 out = {}
 CASES = CASES_LITERAL
 B, L, SB, P, T, S = DIMS_LITERAL
+DRY_ARCH = "gemma-2b"  # each rank's collectives of one train and one decode step against its dry-run trace
 
 
 def nested(prefix):
@@ -114,6 +123,16 @@ def fields(c, prefix=""):
             yield prefix + f.name, v
 
 
+def same_as_dry_run(stats, cfg, shape, spec, rules):
+    # this rank's collectives of one real step (STATS) against the dry run's trace of its rank
+    stats = dict(stats)
+    ab = Mesh.abstract(mesh.sizes, mesh.axis_names, rank=process_index())
+    step, args, _ = dryrun.cell_step(DRY_ARCH, shape, ab, rules_train=rules, microbatches=1, cfg=cfg, spec=spec)
+    _, cost = dryrun.trace(step, *args)
+    traced = {"calls": len(cost.collectives), "bytes": sum(c["payload_bytes"] for c in cost.collectives)}
+    assert traced == {k: stats[k] for k in traced} and traced["calls"] > 0, (shape, process_index(), traced, stats)
+
+
 def put(key, t):
     out[key] = lm_params_to_tree(t) if isinstance(t, torch.Tensor) else np.asarray(t)
 
@@ -133,7 +152,10 @@ for arch, kw in CASES.items():
         moments = [shards(lm_params_from_tree(nested(f"{arch}|{m}|")), specs) for m in ("mu", "nu")]
         one = torch.ones((), dtype=torch.int32)
         state = TrainState(params=local, opt=OptState(mu=moments[0], nu=moments[1], count=one), step=one)
+        collectives.reset_stats()
         state, metrics = jit_train_step(model, opt, mesh, rules, batch=B, seq=L)(state, batch)
+        if arch == DRY_ARCH and rules_name == "TRAIN_RULES":
+            same_as_dry_run(collectives.STATS, cfg, "train_4k", ShapeSpec("t", L, B, "train"), rules)
         check_shapes(state.opt.mu, whole, specs, rules_name + " mu")
         tag = f"{arch}|{rules_name}|"
         for k, v in metrics.items():
@@ -152,7 +174,10 @@ for arch, kw in CASES.items():
     dctx = model.ctx(module.DECODE_RULES, mesh).with_batch(SB, S)
     for t in range(T):
         tok, pos = tokens[:, P + t : P + t + 1], torch.tensor([P + t], dtype=torch.int32)
+        collectives.reset_stats()
         put(f"{arch}|serve|token{t + 1}", decode(local, tok, cache, pos[0])[0])
+        if arch == DRY_ARCH and t == 0:
+            same_as_dry_run(collectives.STATS, cfg, "decode_32k", ShapeSpec("d", S, SB, "decode"), None)
         logits, cache = model.decode(local, dctx.rows(tok), cache, pos, ctx=dctx)
         put(f"{arch}|serve|logits{t + 1}", gather_logits(model, local, logits, dctx))
     whole_cache = model.gather_cache(cache, sctx, SB, S)
