@@ -1,0 +1,12 @@
+"""The card's idle share of the traced top-k window: one less the union of its operations over the window."""
+UNIT = "%"
+BETTER = "lower"
+SOURCE = "device_trace"
+LAYER = "device"
+MOVES = "topk_users_per_s"
+
+
+def read(run):
+    if run.kind != "topk" or run.trace is None:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
