@@ -59,9 +59,9 @@ def device_record(device: torch.device) -> dict[str, Any]:
 
 
 def capture_seconds(engine: BPMFEngine) -> float:
-    """Seconds of the one-time capture of the engine's sweep (its eager warm-up and the capture); 0 with no graph."""
+    """Seconds of the one-time capture of the engine's sweep (its eager warm-up and both captures); 0 with no graph."""
     graph = engine.backend.graph
-    return 0.0 if graph is None else graph.warmup_seconds + graph.capture_seconds
+    return 0.0 if graph is None else graph.warmup_seconds + graph.capture_seconds + graph.timed_capture_seconds
 
 
 def warm_up(cfg: BPMFConfig, coo, device) -> None:

@@ -22,7 +22,8 @@ Phases (any failure stops the run with a non-zero exit and no result line):
    ratings, K = 32, default pads) through ``BPMFEngine``: 4 sweeps, with the
    launch counters reset just before and read just after (one launch per
    bucket, and one second pass per bucket that is split, for each of the 4
-   sweeps and the one eager warm-up sweep that precedes the capture: every
+   sweeps, the one eager warm-up sweep that precedes the capture and the
+   one replay of the capture with the phase events that follows it: every
    sampler below runs its blocks as its captured sweep replayed, a CUDA
    graph, and the counters count each replay's launches); then every bucket
    of that data held against the plain version and timed beside
@@ -582,7 +583,7 @@ def phase_ml20m(torch, gram_kernel, repro_torch_mods, ckpt_root: Path) -> dict:
 
     rmse = [[m.rmse_sample, m.rmse_avg] for m in engine.history]
     # the first block captures the sweep, after one eager warm-up sweep
-    swept = engine.num_sweeps_done + sweep_graph.WARMUP_SWEEPS
+    swept = engine.num_sweeps_done + engine.backend.graph.setup_sweeps
     print(json.dumps({
         "phase": "ml20m_sweeps", "sweeps": engine.num_sweeps_done,
         "warmup_sweeps": sweep_graph.WARMUP_SWEEPS, "graph_replays": engine.backend.graph.replays,
@@ -597,7 +598,7 @@ def phase_ml20m(torch, gram_kernel, repro_torch_mods, ckpt_root: Path) -> dict:
         raise AssertionError(f"RMSE did not fall from sweep 1 to sweep 4: {rmse}")
     if launches != n_buckets * swept:
         raise AssertionError(f"{launches} kernel launches, want {n_buckets} buckets x {swept} sweeps "
-                             "(the run's and the capture's warm-up)")
+                             "(the run's, the capture's warm-up and the timed capture's first replay)")
     if reduce_launches != split_buckets * swept:
         raise AssertionError(f"{reduce_launches} second passes, want {split_buckets} split buckets x "
                              f"{swept} sweeps")
@@ -925,7 +926,7 @@ def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict, ckpt_root: Path) 
     reference = {"hist": history_rows(engine.history), "factors": engine.factors()}
     rmse = [m.rmse_sample for m in engine.history]
     gap = [abs(a - b_) for a, b_ in zip(rmse, ml["rmse_sample"])]
-    swept = engine.num_sweeps_done + sweep_graph.WARMUP_SWEEPS  # the capture's warm-up too
+    swept = engine.num_sweeps_done + b.graph.setup_sweeps  # the capture's warm-up and first timed replay too
     print(json.dumps({
         "phase": "ring_sweeps", "sweeps": engine.num_sweeps_done,
         "warmup_sweeps": sweep_graph.WARMUP_SWEEPS, "graph_replays": b.graph.replays,
@@ -1254,7 +1255,7 @@ def phase_merge(torch, gram_kernel, BPMFEngine, ml: dict, ckpt_root: Path) -> di
     counts = {name: getattr(gram_kernel, name) for name in COUNTERS}
     peak = torch.cuda.max_memory_allocated()
     rmse = [[m.rmse_sample, m.rmse_avg] for m in engine.history]
-    sweeps = engine.num_sweeps_done + sweep_graph.WARMUP_SWEEPS  # the capture's warm-up too
+    sweeps = engine.num_sweeps_done + b.graph.setup_sweeps  # the capture's warm-up and first timed replay too
     print(json.dumps({
         "phase": "merge_sweeps", "sweeps": engine.num_sweeps_done,
         "warmup_sweeps": sweep_graph.WARMUP_SWEEPS, "graph_replays": b.graph.replays,
@@ -1913,7 +1914,8 @@ def planned_ring(torch, gram_kernel, autotune, BPMFEngine, ml: dict, cache, labe
 
     The counters are reset just before the sweeps and read just after and
     must be what the plans launch (:func:`expected_launches`, for the 4
-    replays and the capture's warm-up sweep); the RMSE within 1e-3 of the
+    replays, the capture's warm-up sweep and the timed capture's first
+    replay); the RMSE within 1e-3 of the
     sequential's. Prints one ``label`` line.
     """
     from collections import Counter
@@ -1945,7 +1947,7 @@ def planned_ring(torch, gram_kernel, autotune, BPMFEngine, ml: dict, cache, labe
             t_prev = now
     counts = {name: getattr(gram_kernel, name) for name in COUNTERS}
     peak = torch.cuda.max_memory_allocated()
-    want = {k: v * (engine.num_sweeps_done + sweep_graph.WARMUP_SWEEPS) for k, v in per_sweep.items()}
+    want = {k: v * (engine.num_sweeps_done + b.graph.setup_sweeps) for k, v in per_sweep.items()}
     rmse = [m.rmse_sample for m in engine.history]
     gap = [abs(a - c) for a, c in zip(rmse, ml["rmse_sample"])]
     spb = cfg.run.sweeps_per_block
@@ -3449,7 +3451,8 @@ def run_all(np, torch) -> int:
         "bench_driver_launches": {n: c["LAUNCHES"] for n, c in bench.items()},
         "example_launches": {n: c["LAUNCHES"] for n, c in examples.items()},
         "lm_phase_launches": lm_launches["LAUNCHES"],
-        "note": f"launches: the 4 replays of the captured sweep and the capture's eager warm-up sweep; "
+        "note": f"launches: the 4 replays of the captured sweep, the capture's eager warm-up sweep and "
+                "the first replay of the capture with the phase events; "
                 f"ms, plain_ms, bound_ms and library_ms cover the {gram['launches']} launches of one "
                 "ML20M sweep (and their second passes); ms times single calls, device_ms runs of "
                 "back-to-back calls; no single PyTorch call computes the masked gather + Gram, so "
@@ -3475,7 +3478,8 @@ def run_all(np, torch) -> int:
         "bench_driver_launches": {n: c["FUSED_LAUNCHES"] for n, c in bench.items()},
         "example_launches": {n: c["FUSED_LAUNCHES"] for n, c in examples.items()},
         "lm_phase_launches": lm_launches["FUSED_LAUNCHES"],
-        "note": f"launches: the 4 replays of the captured sweep and the capture's eager warm-up sweep; "
+        "note": f"launches: the 4 replays of the captured sweep, the capture's eager warm-up sweep and "
+                "the first replay of the capture with the phase events; "
                 f"ms, plain_ms, bound_ms and library_ms cover the {fused['launches']} launches of one "
                 f"ML20M sweep of the {RING_SHARDS}-shard ring (and their second passes), from zero sums; "
                 "ms times single calls, device_ms runs of back-to-back calls; "

@@ -49,13 +49,12 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-import time
 from typing import Callable
 
 import numpy as np
 import torch
 
-from repro_torch import convert
+from repro_torch import convert, trace
 from repro_torch.bpmf.config import BPMFConfig
 from repro_torch.checkpoint import host_snapshot_leaf
 from repro_torch.core import distributed as dist
@@ -288,6 +287,8 @@ class Backend(abc.ABC):
         # block overwrites them); "off" hands back copies
         self.donate_blocks = cfg.backend.donate_blocks in ("auto", "on")
         self.graph: SweepGraph | None = None
+        # the phase clock of the latest block's last sweep
+        self._phase_clock = None
 
     @abc.abstractmethod
     def prepare(self, coo: RatingsCOO | ChunkedRatings) -> None:
@@ -346,13 +347,25 @@ class Backend(abc.ABC):
         if _eager or not self.captures():
             rows = []
             for _ in range(block_size):
-                carry, row = self._sweep(key, carry)
+                with trace.sweep() as clock:
+                    carry, row = self._sweep(key, carry)
                 rows.append(row)
+            self._phase_clock = clock
             return (*carry, torch.stack(rows))
         if self.graph is None:
             self.graph = SweepGraph(self._sweep, key, carry)
         carry, rows = self.graph.run(key, carry, block_size, donate=self.donate_blocks)
+        self._phase_clock = self.graph.phases
         return (*carry, rows)
+
+    def phase_clock(self):
+        """The phase clock of the latest block's last sweep, or ``None`` (no block yet, or no events).
+
+        The captured graph's :class:`repro_torch.trace.TimedReplay` (read
+        it once the block has completed) or an eager sweep's
+        :class:`repro_torch.trace.HostPhases`. Both have ``reading()``.
+        """
+        return self._phase_clock
 
     @abc.abstractmethod
     def factors(self, state) -> tuple[np.ndarray, np.ndarray]:
@@ -459,19 +472,19 @@ class SequentialBackend(Backend):
         A :class:`ChunkedRatings` stream is materialized first. ``prepare_seconds``
         records the host wall time of the two steps (``"build"``, ``"upload"``).
         """
-        t0 = time.perf_counter()
-        if isinstance(coo, ChunkedRatings):
-            coo = coo.materialize()
-        host = build_bpmf_data(
-            coo,
-            pads=self.cfg.backend.bucket_pads,
-            test_fraction=self.cfg.run.test_fraction,
-            seed=self.cfg.run.seed,
-        )
-        t1 = time.perf_counter()
-        self.data = posterior.plan_data(host.to(self.device), self.core_cfg)
-        self.prior = self.core_cfg.prior(self.device)
-        self.prepare_seconds = {"build": t1 - t0, "upload": time.perf_counter() - t1}
+        with trace.span("backend.build") as build:
+            if isinstance(coo, ChunkedRatings):
+                coo = coo.materialize()
+            host = build_bpmf_data(
+                coo,
+                pads=self.cfg.backend.bucket_pads,
+                test_fraction=self.cfg.run.test_fraction,
+                seed=self.cfg.run.seed,
+            )
+        with trace.span("backend.upload") as upload:
+            self.data = posterior.plan_data(host.to(self.device), self.core_cfg)
+            self.prior = self.core_cfg.prior(self.device)
+        self.prepare_seconds = {"build": build.seconds, "upload": upload.seconds}
         self._prepared = True
 
     def init_state(self, key: torch.Tensor) -> BPMFState:
@@ -564,26 +577,26 @@ class DistributedBackend(Backend):
             ValueError: S is not a multiple of the job's process count.
         """
         self.ring = bpmf_ring(self.cfg.backend.num_shards, self.device)
-        t0 = time.perf_counter()
-        common = dict(
-            num_shards=self.ring.num_shards,
-            pads=self.cfg.backend.bucket_pads,
-            test_fraction=self.cfg.run.test_fraction,
-            seed=self.cfg.run.seed,
-            strategy=self.cfg.backend.partition_strategy,
-        )
-        if self.ring.spans_processes or isinstance(coo, ChunkedRatings):
-            chunked = coo if isinstance(coo, ChunkedRatings) else coo.chunked()
-            host, self.plan = dist.build_distributed_data_per_host(
-                chunked, local_shards=self.ring.local_shards, **common)
-        else:
-            host, self.plan = dist.build_distributed_data(coo, **common)
-        t1 = time.perf_counter()
-        self.data = dist.place_data(host, self.ring, self.core_cfg)
-        self.prior = self.core_cfg.prior(self.ring.home)
-        if self.ring.home.type == "cuda":
-            torch.cuda.synchronize(self.ring.home)
-        self.prepare_seconds = {"build": t1 - t0, "upload": time.perf_counter() - t1}
+        with trace.span("backend.build") as build:
+            common = dict(
+                num_shards=self.ring.num_shards,
+                pads=self.cfg.backend.bucket_pads,
+                test_fraction=self.cfg.run.test_fraction,
+                seed=self.cfg.run.seed,
+                strategy=self.cfg.backend.partition_strategy,
+            )
+            if self.ring.spans_processes or isinstance(coo, ChunkedRatings):
+                chunked = coo if isinstance(coo, ChunkedRatings) else coo.chunked()
+                host, self.plan = dist.build_distributed_data_per_host(
+                    chunked, local_shards=self.ring.local_shards, **common)
+            else:
+                host, self.plan = dist.build_distributed_data(coo, **common)
+        with trace.span("backend.upload") as upload:
+            self.data = dist.place_data(host, self.ring, self.core_cfg)
+            self.prior = self.core_cfg.prior(self.ring.home)
+            if self.ring.home.type == "cuda":
+                torch.cuda.synchronize(self.ring.home)
+        self.prepare_seconds = {"build": build.seconds, "upload": upload.seconds}
         self._prepared = True
 
     @property
@@ -783,51 +796,51 @@ class PosteriorMergeBackend(Backend):
         Raises:
             ValueError: Fewer chains than processes.
         """
-        t0 = time.perf_counter()
-        if isinstance(coo, ChunkedRatings):
-            coo = coo.materialize()
-        bk = self.cfg.backend
-        world = process_count()
-        P = bk.num_partitions or min(bpmf_ring(0, self.device).num_shards, coo.num_users)
-        if P < world:
-            raise ValueError(f"num_partitions={P} leaves some of the {world} processes without a chain")
-        self.user_sets = subset_merge.partition_users(coo, P, strategy=bk.partition_strategy)
-        # one global split and centering, the sequential backend's, so the
-        # backends compare inference and not data
-        train, test = train_test_split(coo, self.cfg.run.test_fraction, self.cfg.run.seed)
-        self._mean = float(train.vals.mean()) if train.nnz else 0.0
-        self._range = (float(coo.vals.min()), float(coo.vals.max()))
-        train_subs = subset_merge.split_by_users(train, self.user_sets)
-        test_subs = subset_merge.split_by_users(test, self.user_sets)
-        self._test_counts = [t.nnz for t in test_subs]
-        self._test_vals = np.concatenate([np.asarray(t.vals, np.float32) for t in test_subs]) \
-            if test_subs else np.zeros(0, np.float32)
-        self._owner = [c % world for c in range(P)]
-        self._local_chains = [c for c in range(P) if self._owner[c] == process_index()]
-        host = {
-            c: build_bpmf_data_presplit(
-                subset_merge.localize_users(train_subs[c], self.user_sets[c]),
-                subset_merge.localize_users(test_subs[c], self.user_sets[c]),
-                pads=bk.bucket_pads,
-                mean_rating=self._mean,
-                min_rating=self._range[0],
-                max_rating=self._range[1],
-            )
-            for c in self._local_chains
-        }
-        t1 = time.perf_counter()
-        if world > 1:
-            here = bpmf_ring(0, self.device).home
-            self.devices = [here if c in host else None for c in range(P)]
-        else:
-            self.devices = list(bpmf_ring(P, self.device).devices)
-        self.chain_data = [posterior.plan_data(host[c].to(self.devices[c]), self.core_cfg) if c in host else None
-                           for c in range(P)]
-        priors = {dev: self.core_cfg.prior(dev) for dev in dict.fromkeys(self._local_devices())}
-        self.priors = [priors.get(dev) for dev in self.devices]
-        if self.home.type == "cuda":
-            torch.cuda.synchronize(self.home)
-        self.prepare_seconds = {"build": t1 - t0, "upload": time.perf_counter() - t1}
+        with trace.span("backend.build") as build:
+            if isinstance(coo, ChunkedRatings):
+                coo = coo.materialize()
+            bk = self.cfg.backend
+            world = process_count()
+            P = bk.num_partitions or min(bpmf_ring(0, self.device).num_shards, coo.num_users)
+            if P < world:
+                raise ValueError(f"num_partitions={P} leaves some of the {world} processes without a chain")
+            self.user_sets = subset_merge.partition_users(coo, P, strategy=bk.partition_strategy)
+            # one global split and centering, the sequential backend's, so the
+            # backends compare inference and not data
+            train, test = train_test_split(coo, self.cfg.run.test_fraction, self.cfg.run.seed)
+            self._mean = float(train.vals.mean()) if train.nnz else 0.0
+            self._range = (float(coo.vals.min()), float(coo.vals.max()))
+            train_subs = subset_merge.split_by_users(train, self.user_sets)
+            test_subs = subset_merge.split_by_users(test, self.user_sets)
+            self._test_counts = [t.nnz for t in test_subs]
+            self._test_vals = np.concatenate([np.asarray(t.vals, np.float32) for t in test_subs]) \
+                if test_subs else np.zeros(0, np.float32)
+            self._owner = [c % world for c in range(P)]
+            self._local_chains = [c for c in range(P) if self._owner[c] == process_index()]
+            host = {
+                c: build_bpmf_data_presplit(
+                    subset_merge.localize_users(train_subs[c], self.user_sets[c]),
+                    subset_merge.localize_users(test_subs[c], self.user_sets[c]),
+                    pads=bk.bucket_pads,
+                    mean_rating=self._mean,
+                    min_rating=self._range[0],
+                    max_rating=self._range[1],
+                )
+                for c in self._local_chains
+            }
+        with trace.span("backend.upload") as upload:
+            if world > 1:
+                here = bpmf_ring(0, self.device).home
+                self.devices = [here if c in host else None for c in range(P)]
+            else:
+                self.devices = list(bpmf_ring(P, self.device).devices)
+            self.chain_data = [posterior.plan_data(host[c].to(self.devices[c]), self.core_cfg) if c in host else None
+                               for c in range(P)]
+            priors = {dev: self.core_cfg.prior(dev) for dev in dict.fromkeys(self._local_devices())}
+            self.priors = [priors.get(dev) for dev in self.devices]
+            if self.home.type == "cuda":
+                torch.cuda.synchronize(self.home)
+        self.prepare_seconds = {"build": build.seconds, "upload": upload.seconds}
         self._num_users, self._num_movies = coo.num_users, coo.num_movies
         self._prepared = True
 
@@ -931,6 +944,7 @@ class PosteriorMergeBackend(Backend):
             )
             for c in self._local_chains
         }
+        trace.phase("predict")
         row = self._combine_metric_rows(self._global_rows({c: o[3][None] for c, o in outs.items()}))[0]
         C = range(self.num_partitions)
         carry = (

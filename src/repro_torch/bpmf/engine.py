@@ -38,16 +38,26 @@ in the same order: the sweeps, ``save``, ``restore``, ``factors`` and
 ``export`` are collectives. Each process holds its own shards or chains;
 the metrics, the factors and the exported artifact are the same on every
 process, and process 0 alone writes the artifact.
+
+Each block read back leaves a :class:`repro_torch.trace.BlockRecord` in
+``BPMFEngine.blocks`` (the last :data:`repro_torch.trace.BLOCK_RECORDS`):
+its first sweep, and the phase clock of its last sweep. On a card that
+clock is the captured graph's events, which the graph reads when the next
+block is dispatched, while the card works on that block's plain replays
+(or when ``blocks`` is read). A block still running when the next one
+reaches its events (two or more blocks in flight) is unsampled.
+``_dispatch`` and ``_drain_one`` are the host spans
+``repro_torch: engine.dispatch`` and ``engine.drain``.
 """
 from __future__ import annotations
 
-import time
 from collections import deque
 from typing import Iterator
 
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.bpmf.backends import Backend, get_backend
 from repro_torch.bpmf.config import BPMFConfig
 from repro_torch.checkpoint import CheckpointManager, CheckpointSchemaError
@@ -123,9 +133,12 @@ class BPMFEngine:
         # seconds the host spent waiting for those reads, summed over the
         # run (the wait the pipelined dispatch queue exists to hide)
         self.host_blocked_s = 0.0
-        # dispatched blocks whose metrics are not read yet: (rows, event);
-        # rows is a host tensor, filled once the event has completed
-        self._inflight: deque[tuple[torch.Tensor, torch.cuda.Event | None]] = deque()
+        # dispatched blocks whose metrics are not read yet: (rows, event,
+        # first sweep, phase clock); rows is a host tensor, filled once the
+        # event has completed
+        self._inflight: deque[tuple[torch.Tensor, torch.cuda.Event | None, int, object]] = deque()
+        # the blocks read back: (first sweep, sweeps, phase clock)
+        self._blocks: deque[tuple[int, int, object]] = deque(maxlen=trace.BLOCK_RECORDS)
         keys = prng.split(prng.key(self.cfg.run.seed, self.device))
         self._k_init, self._k_run = keys[0], keys[1]
 
@@ -184,18 +197,20 @@ class BPMFEngine:
 
     def _dispatch(self, n: int) -> None:
         """Issue a block of ``n`` sweeps and start its metrics copy to the host."""
-        self._state, self._pred, self._accum, rows = self.backend.sweep_block(
-            self._k_run, self._state, self._pred, self._accum, n
-        )
-        event = None
-        if rows.device.type == "cuda":
-            host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-            host.copy_(rows, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(rows.device))
-            rows = host
-        self._inflight.append((rows, event))
-        self._sweeps_done += n
+        first = self._sweeps_done + 1
+        with trace.span("engine.dispatch", sweep=first):
+            self._state, self._pred, self._accum, rows = self.backend.sweep_block(
+                self._k_run, self._state, self._pred, self._accum, n
+            )
+            event = None
+            if rows.device.type == "cuda":
+                host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+                host.copy_(rows, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(rows.device))
+                rows = host
+            self._inflight.append((rows, event, first, self.backend.phase_clock()))
+            self._sweeps_done += n
 
     def _drain_one(self) -> None:
         """Read the oldest dispatched block's metrics into ``history``.
@@ -209,13 +224,15 @@ class BPMFEngine:
                 (a gamma entry that no round of ``prng.GAMMA_ROUNDS``
                 accepted, or a failed factorization).
         """
-        rows, event = self._inflight.popleft()
-        t0 = time.perf_counter()
-        if event is not None:
-            event.synchronize()
-        rows = rows.numpy()
-        self.host_blocked_s += time.perf_counter() - t0
-        self.host_metric_bytes += int(rows.nbytes)
+        rows, event, first, clock = self._inflight.popleft()
+        with trace.span("engine.drain", sweep=first):
+            with trace.span("engine.metrics_wait") as wait:
+                if event is not None:
+                    event.synchronize()
+                rows = rows.numpy()
+            self.host_blocked_s += wait.seconds
+            self.host_metric_bytes += int(rows.nbytes)
+            self._blocks.append((first, len(rows), clock))
         bad = [int(r[2]) for r in rows if r[3] != 0]
         if bad:
             raise FloatingPointError(
@@ -223,6 +240,13 @@ class BPMFEngine:
                 f"with no accepted proposal in {prng.GAMMA_ROUNDS} rounds, or a failed factorization)"
             )
         self.history.extend(SweepMetrics(float(r[0]), float(r[1]), float(r[2])) for r in rows)
+
+    @property
+    def blocks(self) -> list[trace.BlockRecord]:
+        """One :class:`repro_torch.trace.BlockRecord` per block read back (the newest last, at most
+        :data:`repro_torch.trace.BLOCK_RECORDS`)."""
+        return [trace.BlockRecord(first, n, *(clock.reading() if clock is not None else (None,) * 4))
+                for first, n, clock in self._blocks]
 
     def _drain_inflight(self) -> None:
         """Read every dispatched block's metrics: the barrier of ``save``,

@@ -50,12 +50,12 @@ hyper-parameter statistics are summed over shards in global shard order
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.checkpoint.checkpoint import ShardedHostLeaf, _shard_ranges
 from repro_torch.core import posterior, prng
 from repro_torch.core.balance import CostModel, Partition, partition_items
@@ -336,7 +336,9 @@ class Ring:
     ``host_bytes`` and ``host_seconds`` count what crossed processes
     through host memory under ``gloo``: the bytes copied to and from the
     card, and the host's wall time in those copies and in the waits for
-    ``gloo`` (reset them to measure a window). ``rotation_bytes_sent``
+    ``gloo`` (reset them to measure a window), summed from the host spans
+    ``ring.stage``, ``ring.wait``, ``ring.upload``, ``ring.all_gather``
+    and ``ring.exchange`` (:mod:`repro_torch.trace`). ``rotation_bytes_sent``
     and ``gather_bytes_sent`` count the bytes this process sent to other
     processes, by hand-overs of :meth:`rotate` and by :meth:`all_gather`
     (its block once to each other rank), on any device.
@@ -415,10 +417,10 @@ class Ring:
         """
         if not self._staged():
             return list(bufs)
-        t0 = time.perf_counter()
-        hosts = _host_copies([self.take(b) for b in bufs])
-        self.host_bytes += sum(h.nbytes for h in hosts)
-        self.host_seconds += time.perf_counter() - t0
+        with trace.span("ring.stage") as stage:
+            hosts = _host_copies([self.take(b) for b in bufs])
+            self.host_bytes += sum(h.nbytes for h in hosts)
+        self.host_seconds += stage.seconds
         return [b._replace(host=h) for b, h in zip(bufs, hosts)]
 
     def rotate(self, bufs: Sequence[InFlight]) -> list[InFlight]:
@@ -447,19 +449,19 @@ class Ring:
     def take(self, buf: InFlight) -> torch.Tensor:
         """The buffer's tensor, once the current stream of its device has waited for its arrival."""
         if buf.pending is not None:
-            t0 = time.perf_counter()
-            buf.pending.wait()
-            self.host_seconds += time.perf_counter() - t0
+            with trace.span("ring.wait") as wait:
+                buf.pending.wait()
+            self.host_seconds += wait.seconds
         if buf.tensor is None:  # received into the host: to the card on a side stream, behind an event
-            t0 = time.perf_counter()
-            side = self._side_stream(buf.device)
-            with torch.cuda.stream(side):
-                tensor = buf.host.to(buf.device, non_blocking=True)
-            arrived = torch.cuda.Event()
-            arrived.record(side)
-            buf = InFlight(tensor, arrived)
-            self.host_bytes += tensor.nbytes
-            self.host_seconds += time.perf_counter() - t0
+            with trace.span("ring.upload") as upload:
+                side = self._side_stream(buf.device)
+                with torch.cuda.stream(side):
+                    tensor = buf.host.to(buf.device, non_blocking=True)
+                arrived = torch.cuda.Event()
+                arrived.record(side)
+                buf = InFlight(tensor, arrived)
+                self.host_bytes += tensor.nbytes
+            self.host_seconds += upload.seconds
         if buf.event is None:
             return buf.tensor
         stream = torch.cuda.current_stream(buf.tensor.device)
@@ -471,16 +473,16 @@ class Ring:
         """Every process's ``x``, in rank order (so in shard order), on ``x``'s device: :func:`all_gather_blocks`, counted."""
         if not self.spans_processes:
             return [x]
-        t0 = time.perf_counter()
-        if self.abstract:
-            self._record("all-gather", x)
-            out = [torch.empty_like(x) for _ in range(self.num_processes)]
-        else:
-            out = all_gather_blocks(x)
-        self.gather_bytes_sent += x.nbytes * (self.num_processes - 1)
-        if _stages_through_host(x.device):
-            self.host_bytes += x.nbytes * (1 + self.num_processes)
-        self.host_seconds += time.perf_counter() - t0
+        with trace.span("ring.all_gather") as gather:
+            if self.abstract:
+                self._record("all-gather", x)
+                out = [torch.empty_like(x) for _ in range(self.num_processes)]
+            else:
+                out = all_gather_blocks(x)
+            self.gather_bytes_sent += x.nbytes * (self.num_processes - 1)
+            if _stages_through_host(x.device):
+                self.host_bytes += x.nbytes * (1 + self.num_processes)
+        self.host_seconds += gather.seconds
         return out
 
     def _side_stream(self, device: torch.device) -> torch.cuda.Stream:
@@ -506,29 +508,29 @@ class Ring:
 
     def _exchange(self, buf: InFlight) -> InFlight:
         """Send ``buf`` to the next rank and post the receive of the previous rank's buffer."""
-        t0 = time.perf_counter()
-        nxt = (self.rank + 1) % self.num_processes
-        prv = (self.rank - 1) % self.num_processes
-        self._tag += 1  # every rank rotates in the same order: the tags pair the messages
-        if self._staged():
-            if buf.pending is not None:  # a block received earlier, forwarded from the host as it came
-                buf.pending.wait()
-            if buf.host is None:
-                buf = self.stage([buf])[0]
-            send = buf.host
-            recv = torch.empty(send.shape, dtype=send.dtype, pin_memory=True)
-        else:
-            send = self.take(buf)
-            recv = torch.empty_like(send)
-        self.rotation_bytes_sent += send.nbytes
-        if self.abstract:
-            self._record("collective-permute", send)
-            return InFlight(recv)
-        works = torch.distributed.batch_isend_irecv([
-            torch.distributed.P2POp(torch.distributed.isend, send, nxt, tag=self._tag),
-            torch.distributed.P2POp(torch.distributed.irecv, recv, prv, tag=self._tag),
-        ])
-        self.host_seconds += time.perf_counter() - t0
+        with trace.span("ring.exchange") as exchange:
+            nxt = (self.rank + 1) % self.num_processes
+            prv = (self.rank - 1) % self.num_processes
+            self._tag += 1  # every rank rotates in the same order: the tags pair the messages
+            if self._staged():
+                if buf.pending is not None:  # a block received earlier, forwarded from the host as it came
+                    buf.pending.wait()
+                if buf.host is None:
+                    buf = self.stage([buf])[0]
+                send = buf.host
+                recv = torch.empty(send.shape, dtype=send.dtype, pin_memory=True)
+            else:
+                send = self.take(buf)
+                recv = torch.empty_like(send)
+            self.rotation_bytes_sent += send.nbytes
+            if self.abstract:
+                self._record("collective-permute", send)
+                return InFlight(recv)
+            works = torch.distributed.batch_isend_irecv([
+                torch.distributed.P2POp(torch.distributed.isend, send, nxt, tag=self._tag),
+                torch.distributed.P2POp(torch.distributed.irecv, recv, prv, tag=self._tag),
+            ])
+        self.host_seconds += exchange.seconds
         if self._staged():
             return InFlight(None, host=recv, pending=_Pending(works), device=self.devices[0])
         return InFlight(recv, pending=_Pending(works))
@@ -938,13 +940,17 @@ def _half_sweep_ring(key, X_opp, side: RingSide, hyper, cfg: BPMFConfig, ring: R
 
     The rotation for step t+1 is issued before step t's Gram accumulation,
     so a transfer between cards or processes proceeds while the kernel runs.
+    Each step is a host span ``ring.step`` (it times an eager sweep; a
+    captured one shows it only at capture).
     """
+    trace.phase("gram")
     G, g = _zero_terms(side, X_opp[0].shape[-1], ring)
     bufs = ring.stage([InFlight(x) for x in X_opp])
     for t in range(ring.num_shards):
-        nxt = ring.rotate(bufs) if t + 1 < ring.num_shards else None  # in flight during the Gram
-        for i in range(len(bufs)):
-            _accumulate(G[i], g[i], ring.take(bufs[i]), side, t, i, cfg)
+        with trace.span("ring.step", step=t):
+            nxt = ring.rotate(bufs) if t + 1 < ring.num_shards else None  # in flight during the Gram
+            for i in range(len(bufs)):
+                _accumulate(G[i], g[i], ring.take(bufs[i]), side, t, i, cfg)
         if nxt is not None:
             bufs = nxt
     return _sample_shards(key, side, G, g, hyper, ring)
@@ -964,6 +970,7 @@ def _half_sweep_ring_async(key, X_opp, side: RingSide, hyper, cfg: BPMFConfig, r
         raise ValueError(f"pipeline_depth must be >= 1, got {cfg.pipeline_depth}")
     S = ring.num_shards
     depth = min(cfg.pipeline_depth, S)  # more than S - 1 rotations cannot exist
+    trace.phase("gram")
     G, g = _zero_terms(side, X_opp[0].shape[-1], ring)
     queue = [ring.stage([InFlight(x) for x in X_opp])]  # queue[i] holds the buffers of step t + i
     for _ in range(depth - 1):
@@ -986,6 +993,7 @@ def _half_sweep_allgather(key, X_opp, side: RingSide, hyper, cfg: BPMFConfig, ri
     """
     S = ring.num_shards
     cap_opp = X_opp[0].shape[0]
+    trace.phase("gram")
     if ring.spans_processes:
         full = {ring.home: torch.cat(ring.all_gather(torch.cat(X_opp)))}
     else:
@@ -1068,6 +1076,7 @@ def _sweep_step(key, state: DistState, pred: PredictionState, data: DistBPMFData
     if cfg.comm_mode not in _HALVES:
         raise ValueError(f"unknown comm_mode {cfg.comm_mode!r}; one of {sorted(_HALVES)}")
     half = _HALVES[cfg.comm_mode]
+    trace.phase("hyper")
     prior = cfg.prior(ring.home) if prior is None else prior
     k_hv, k_v, k_hu, k_u = sweep_keys(key, state.sweep)
 
@@ -1075,9 +1084,11 @@ def _sweep_step(key, state: DistState, pred: PredictionState, data: DistBPMFData
     hyper_V = _sample_hyper_dist(k_hv, state.V, data.movies.orig_ids, prior, ring)
     V = half(k_v, state.U, data.movies, hyper_V, cfg, ring)
     # users given updated movies
+    trace.phase("hyper")
     hyper_U = _sample_hyper_dist(k_hu, state.U, data.users.orig_ids, prior, ring)
     U = half(k_u, V, data.users, hyper_U, cfg, ring)
 
+    trace.phase("predict")
     sweep = state.sweep + 1
     preds = _predict_dist(U, V, data.test, data.mean_rating, data.min_rating, data.max_rating, ring)
     pred, r_sample, r_avg = accumulate_predictions(pred, preds, data.test.vals, sweep > cfg.burn_in)
@@ -1089,7 +1100,8 @@ def dist_gibbs_sweep(key, state: DistState, pred: PredictionState, data: DistBPM
                      cfg: BPMFConfig, ring: Ring,
                      prior: NormalWishartPrior | None = None) -> tuple[DistState, PredictionState, SweepMetrics]:
     """One distributed sweep and its metrics on the host (the JAX package's per-sweep entry point)."""
-    state, pred, row = _sweep_step(key, state, pred, data, cfg, ring, prior)
+    with trace.sweep():
+        state, pred, row = _sweep_step(key, state, pred, data, cfg, ring, prior)
     return state, pred, SweepMetrics(*map(float, row[:3].cpu().numpy()))
 
 
@@ -1101,11 +1113,13 @@ def dist_sweep_step(key, state: DistState, pred: PredictionState, accum: tuple[P
     The unit that the ring backends capture as a CUDA graph. Returns
     ``(state, pred, accum, row)``.
     """
-    state, pred, row = _sweep_step(key, state, pred, data, cfg, ring, prior)
-    accum = tuple(
-        update_posterior_accum(a, state.U[d], state.V[d], (state.sweep > cfg.burn_in).to(a.count.device))
-        for d, a in enumerate(accum)
-    )
+    with trace.sweep():
+        state, pred, row = _sweep_step(key, state, pred, data, cfg, ring, prior)
+        trace.phase("accum")
+        accum = tuple(
+            update_posterior_accum(a, state.U[d], state.V[d], (state.sweep > cfg.burn_in).to(a.count.device))
+            for d, a in enumerate(accum)
+        )
     return state, pred, accum, row
 
 

@@ -17,6 +17,11 @@ block returns one ``[block, 4]`` tensor of metric rows for a single read
 by the caller: ``(rmse_sample, rmse_avg, sweep, bad)``, where ``bad`` is
 1.0 for a sweep whose hyper-parameter draw is not finite
 (:func:`repro_torch.core.hyper.hyper_ok`) and 0.0 otherwise.
+
+Each sweep marks its phases for the phase clock (:mod:`repro_torch.trace`):
+``hyper``, then per bucket ``gram``, ``solve``, ``noise``, ``solve``
+(:mod:`repro_torch.core.posterior`), for each side, then ``predict`` and
+``accum``.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import posterior, prng
 from repro_torch.core.hyper import hyper_ok, sample_hyper
 from repro_torch.core.prediction import (
@@ -92,6 +98,7 @@ def _sweep_body(
     ``prior`` is ``cfg.prior(device)``, built here when not given (the
     backends build it once).
     """
+    trace.phase("hyper")
     prior = cfg.prior(key.device) if prior is None else prior
     k_hv, k_v, k_hu, k_u = sweep_keys(key, state.sweep)
 
@@ -102,12 +109,14 @@ def _sweep_body(
         cfg.compute_dtype, cfg.gram_impl,
     )
     # users given (updated) movies
+    trace.phase("hyper")
     hyper_U = sample_hyper(k_hu, state.U, prior)
     U = posterior.update_side(
         k_u, state.U, V, data.users, hyper_U, cfg.alpha,
         cfg.compute_dtype, cfg.gram_impl,
     )
 
+    trace.phase("predict")
     sweep = state.sweep + 1
     new_state = BPMFState(U=U, V=V, hyper_U=hyper_U, hyper_V=hyper_V, sweep=sweep)
     pred_state, r_sample, r_avg = update_predictions(
@@ -130,8 +139,10 @@ def sweep_step(
 
     The unit that the sequential backend captures as a CUDA graph.
     """
-    state, pred_state, row = _sweep_body(key, state, pred_state, data, cfg, prior)
-    accum = update_posterior_accum(accum, state.U, state.V, state.sweep > cfg.burn_in)
+    with trace.sweep():
+        state, pred_state, row = _sweep_body(key, state, pred_state, data, cfg, prior)
+        trace.phase("accum")
+        accum = update_posterior_accum(accum, state.U, state.V, state.sweep > cfg.burn_in)
     return state, pred_state, accum, row
 
 
@@ -147,7 +158,8 @@ def gibbs_sweep(
     The sweep of :func:`gibbs_sweep_block` without the posterior
     accumulator: the same state, predictions and metrics, bit for bit.
     """
-    state, pred_state, row = _sweep_body(key, state, pred_state, data, cfg)
+    with trace.sweep():
+        state, pred_state, row = _sweep_body(key, state, pred_state, data, cfg)
     return state, pred_state, SweepMetrics(*map(float, row[:3].cpu().numpy()))
 
 

@@ -18,6 +18,11 @@ Which Gram op a bucket runs is decided once, when a backend builds its
 data (:func:`plan_data`), and kept beside the buckets
 (``BucketedSide.gram``); a sweep, eager or captured, runs what was
 decided.
+
+The phase clock's marks (:mod:`repro_torch.trace`): a side starts in
+``gram``; a bucket's Gram terms are ``gram``, its factorization and first
+solve ``solve``, its noise ``noise``, and the second solve with the
+scatter into the new factors ``solve`` again.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import prng
 from repro_torch.core.types import BPMFConfig, BPMFData, Bucket, BucketedSide, HyperParams
 from repro_torch.kernels import autotune, ops
@@ -60,13 +66,16 @@ def sample_from_terms(
 ) -> torch.Tensor:
     """Draw x_i ~ N(P^-1 l, P^-1) for a batch of items from accumulated terms."""
     K = g.shape[-1]
+    trace.phase("solve")
     prec = G + hyper.Lam  # [B, K, K]
     lin = g + hyper.Lam @ hyper.mu  # [B, K]
     # cholesky_ex does not read the status back to the host, so the GPU
     # pipeline does not stall; a non-PD precision gives NaN rows, as JAX's does
     L, _ = torch.linalg.cholesky_ex(prec)
     y = torch.linalg.solve_triangular(L, lin[..., None], upper=False)
+    trace.phase("noise")
     z = item_noise(key, item_ids, K)
+    trace.phase("solve")
     # mean = L^-T y and noise = L^-T z in one solve with two right-hand sides
     both = torch.linalg.solve_triangular(
         L.transpose(-1, -2), torch.cat([y, z[..., None]], dim=-1), upper=True
@@ -92,6 +101,7 @@ def update_bucket(
     way JAX's ``mode="drop"`` scatter drops them. Plain indexing with -1
     would overwrite the last real item.
     """
+    trace.phase("gram")
     G, g = gram_terms(X_opp, bucket, alpha, compute_dtype, gram_impl, piece)
     new = sample_from_terms(key, bucket.item_ids, G, g, hyper)
     dump = X_out.shape[0] - 1
@@ -115,6 +125,7 @@ def update_side(
     A planned side runs each bucket's decision (``side.gram``), an
     unplanned one ``gram_impl``. ``X_side`` itself is not modified.
     """
+    trace.phase("gram")
     X_out = torch.cat([X_side, X_side.new_zeros(1, X_side.shape[1])])
     for bucket, dec in zip(side.buckets, side.gram or (None,) * len(side.buckets), strict=True):
         impl, piece = (gram_impl, None) if dec is None else (dec.impl, dec.piece)

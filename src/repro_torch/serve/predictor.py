@@ -25,12 +25,27 @@ coalesced with others (the server's micro-batches). Ties in ``top_k`` go
 to the lower item id, the rule of :func:`repro_torch.serve.sharded_topk.merge_topk`;
 ``torch.topk`` promises no order among ties, so the scores go through a
 stable descending sort instead.
+
+Each replicated ``top_k`` call leaves a :class:`repro_torch.trace.CallRecord`
+in ``PosteriorPredictor.calls`` (the last :data:`repro_torch.trace.CALL_RECORDS`):
+the milliseconds of its scores with the clamp, its sort and its host copy.
+On the CPU they are the host spans ``repro_torch: predictor.score``,
+``predictor.sort`` and ``predictor.copy``. On a card they are four CUDA
+events a call (:class:`_CallTimer`, one per thread, two sets by turns):
+a call's events are read during the thread's next call, once that call's
+score kernels are queued, or when ``calls`` is read, so no read waits on
+the host's path between a call's copy and the next call's kernels.
 """
 from __future__ import annotations
+
+import itertools
+import threading
+from collections import deque
 
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.serve.artifact import ArtifactMeta, load_artifact
 from repro_torch.serve.sharded_topk import build_local_topk, merge_topk, shard_items
 from repro_torch.utils import resolve_device
@@ -85,6 +100,58 @@ def _std0(x: torch.Tensor) -> torch.Tensor:
     for s in range(1, n):
         var = var + (x[s] - mean) ** 2
     return torch.sqrt(var / n)
+
+
+class _CallTimer:
+    """One thread's CUDA events for its top-k calls: start, after the scores, after the sort, after the copy.
+
+    Two sets of four, by turns: a call records into one while the other
+    holds the previous call's, which :meth:`take` reads (its last event was
+    recorded after that call's host copy returned, so it is complete or
+    nearly). The events go on the stream that was current when the thread
+    first called; a call made on another stream keeps no record, and the
+    next call uses that stream.
+    """
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.current_stream(device)
+        self.sets = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(2)]
+        self.turn = 0
+        self.valid = True
+        self.pending: tuple[int, int, list[torch.cuda.Event]] | None = None
+        self.lock = threading.Lock()
+
+    def mark(self, i: int) -> None:
+        if i == 0:  # the set's first record waits for a read of it on another thread
+            with self.lock:
+                self.sets[self.turn][0].record(self.stream)
+        else:
+            self.sets[self.turn][i].record(self.stream)
+
+    def check_stream(self) -> None:
+        """Off the host's critical path: whether this call's kernels run on the events' stream."""
+        stream = torch.cuda.current_stream(self.device)
+        if stream != self.stream:
+            self.stream, self.valid = stream, False
+
+    def finish(self, call: int, users: int) -> None:
+        """This call's events are recorded: keep them for :meth:`take`; the next call takes the other set."""
+        if self.valid:
+            with self.lock:
+                self.pending = (call, users, self.sets[self.turn])
+            self.turn ^= 1
+        self.valid = True
+
+    def take(self) -> trace.CallRecord | None:
+        """The record of the call whose events are kept, if any."""
+        with self.lock:
+            pending, self.pending = self.pending, None
+            if pending is None:
+                return None
+            call, users, events = pending
+            events[3].synchronize()
+            return trace.CallRecord(call, users, "device", *(a.elapsed_time(b) for a, b in zip(events, events[1:])))
 
 
 class PosteriorPredictor:
@@ -143,6 +210,12 @@ class PosteriorPredictor:
         self._Vt = self._V.T.contiguous()  # [K, N]: row k is contiguous for the catalog scan
         self._Us, self._Vs = put("U_samples"), put("V_samples")
         self._mean = torch.tensor(meta.mean_rating, dtype=torch.float32, device=self.device)
+        # one record per replicated top-k call, the newest last
+        self._calls: deque[trace.CallRecord] = deque(maxlen=trace.CALL_RECORDS)
+        self._call_index = itertools.count()
+        self._per_thread = threading.local()  # each thread's _CallTimer on a card
+        self._timers: list[_CallTimer] = []
+        self._timers_lock = threading.Lock()
 
     @classmethod
     def load(
@@ -259,12 +332,61 @@ class PosteriorPredictor:
         if self._use_sharded_topk(sharded):
             ids, vals = self._top_k_sharded(users, k)
         else:
-            lo, hi = self.meta.min_rating, self.meta.max_rating
+            ids, vals = self._top_k_replicated(users, k)
+        return (ids[0], vals[0]) if scalar else (ids, vals)
+
+    @property
+    def calls(self) -> deque[trace.CallRecord]:
+        """One :class:`repro_torch.trace.CallRecord` per replicated top-k call (the newest last, at most
+        :data:`repro_torch.trace.CALL_RECORDS`); reading it reads the events still kept."""
+        for timer in list(self._timers):
+            record = timer.take()
+            if record is not None:
+                self._calls.append(record)
+        return self._calls
+
+    def _timer(self) -> _CallTimer | None:
+        """This thread's :class:`_CallTimer` on a card (made once), ``None`` on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        timer = getattr(self._per_thread, "timer", None)
+        if timer is None:
+            timer = self._per_thread.timer = _CallTimer(self.device)
+            with self._timers_lock:
+                self._timers.append(timer)
+        return timer
+
+    def _top_k_replicated(self, users: torch.Tensor, k: int) -> tuple[np.ndarray, np.ndarray]:
+        """The catalog scan on :attr:`device`, its scores, sort and host copy timed into :attr:`calls`."""
+        call = next(self._call_index)
+        timer = self._timer()
+        lo, hi = self.meta.min_rating, self.meta.max_rating
+        if timer:
+            timer.mark(0)
+        with trace.span("predictor.score", call=call) as score:
             scores = (_catalog_scores(self._U[users], self._Vt) + self._mean).clamp(lo, hi)
+            if timer:
+                timer.mark(1)
+                # the card works on the scores: read the previous call's events now
+                previous = timer.take()
+                if previous is not None:
+                    self._calls.append(previous)
+                timer.check_stream()
+        with trace.span("predictor.sort", call=call) as sort:
             vals, ids = torch.sort(scores, dim=-1, descending=True, stable=True)
+            if timer:
+                timer.mark(2)
+        with trace.span("predictor.copy", call=call) as copy:
             ids = ids[:, :k].to(torch.int32).cpu().numpy()
             vals = vals[:, :k].cpu().numpy()
-        return (ids[0], vals[0]) if scalar else (ids, vals)
+            if timer:
+                timer.mark(3)
+        if timer:
+            timer.finish(call, len(users))
+        else:
+            self._calls.append(trace.CallRecord(call, len(users), "host",
+                                                *(1e3 * s.seconds for s in (score, sort, copy))))
+        return ids, vals
 
 
 class PredictorHandle:
