@@ -17,7 +17,12 @@ Phases (any failure stops the run with a non-zero exit and no result line):
    plain version and ``torch.bmm`` on the pre-gathered block (contraction
    only, gather excluded): one JSON line per shape; then the same for the
    fused kernel at the edge shapes of tests/test_gram_fused.py and at a row
-   whose chunks span three pieces;
+   whose chunks span three pieces; then ``prng``: the threefry kernel
+   (``csrc/bpmf_prng.cu``) built, ``posterior.item_noise`` at ML20M's and
+   ChEMBL's sides held to the plain ops bit for bit and timed beside them,
+   ``torch.randn`` and its bound, and one hyper draw: each of its draws
+   held to the plain ops bit for bit, its launches and ms, eager and
+   replayed from a CUDA graph;
 4. the sequential sampler at MovieLens-20M scale (138,493 x 27,278, 20 M
    ratings, K = 32, default pads) through ``BPMFEngine``: 4 sweeps, with the
    launch counters reset just before and read just after (one launch per
@@ -25,7 +30,11 @@ Phases (any failure stops the run with a non-zero exit and no result line):
    sweeps, the one eager warm-up sweep that precedes the capture and the
    one replay of the capture with the phase events that follows it: every
    sampler below runs its blocks as its captured sweep replayed, a CUDA
-   graph, and the counters count each replay's launches); then every bucket
+   graph, and the counters count each replay's launches), and the threefry
+   kernel's counters (``prng.LAUNCHES``, ``PLAIN_CALLS``) zeroed once the
+   initial factors are drawn: the graph's ``prng_launches_per_replay`` for
+   each of those sweeps and no plain draw (the ring below is held to the
+   same); then every bucket
    of that data held against the plain version and timed beside
    ``torch.bmm`` on its pre-gathered block, with its milliseconds per
    million real ratings; then the fused kernel on the movies side's buckets
@@ -36,8 +45,9 @@ Phases (any failure stops the run with a non-zero exit and no result line):
    ``graph_sweeps``: the same 4 sweeps eagerly (``_eager=True``) from the
    same start, in blocks of 2; every metrics row and every tensor of the
    carry (U, V, hyper-parameters, counters, accumulators) must equal the
-   replayed run's bit for bit, and an eager sweep's Gram launches the
-   graph's per replay; capture seconds, captured and eager s/sweep,
+   replayed run's bit for bit, an eager sweep's Gram and threefry
+   (``prng``) launches the graph's per replay, and no plain draw; capture
+   seconds, captured and eager s/sweep,
    replays and kernel launches per sweep, each one's device kernel time
    and busy share (one replayed and one eager sweep under torch.profiler)
    and peak memory; then ``no_host_read``: one eager block of 2 sweeps
@@ -234,6 +244,21 @@ SRC = ROOT / "src"
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+# H100 SXM, 132 SMs at the 1.98 GHz boost clock: an SM's 4 schedulers dispatch
+# 128 thread-instructions a clock, of which its integer ALU pipe takes 64
+PEAK_DISPATCH = 128 * 132 * 1.98e9
+PEAK_ALU = 64 * 132 * 1.98e9
+# instructions a thread of the bpmf_prng kernels executes on its common path, one
+# thread an output, counted in `cuobjdump -sass` of the sm_90a build (PERF.md
+# §6): (all, on the ALU pipe). A normal of a multi-row draw (erfinv's w < 5,
+# 32-bit row division): 223, of which 94 IADD3, LOP3, SHF, LEA, compares and
+# selects, 37 IMAD, 41 FP32, 3 MUFU and conversions, 22 loads and stores, 26
+# uniform and control; a fold_in row by an int32 counter: 140, 66 on the ALU pipe
+PRNG_NORMAL_INSTRUCTIONS = (223, 94)
+PRNG_FOLD_IN_INSTRUCTIONS = (140, 66)
+# (shape, items, K) of posterior.item_noise: every row of one side in one call
+PRNG_SHAPES = [("ML20M users", 138_493, 32), ("ML20M movies", 27_278, 32),
+               ("ChEMBL compounds", 483_500, 32), ("ChEMBL targets", 5_775, 32)]
 TEST_SHAPES = [(16, 8, 1, 8), (64, 32, 13, 70), (128, 32, 8, 128), (100, 16, 5, 300),
                (256, 64, 4, 512), (32, 128, 3, 17), (300, 32, 2, 1024)]
 # (Ns, B, P, smallest nnz) of MovieLens-20M buckets at K = 32: users P=128,
@@ -331,6 +356,143 @@ def device_ms(torch, fn, launches: int = 20) -> float:
 
 def bound_ms(bytes_: float, flops: float) -> float:
     return 1e3 * max(bytes_ / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS)
+
+
+def prng_work(items: int, K: int) -> tuple[float, float, float]:
+    """(bytes, instructions, ALU-pipe instructions) of ``item_noise`` for ``items`` rows of K normals.
+
+    Bytes: the int32 ids read and the row keys written and read back once
+    (16 bytes), the float32 normals written once. Instructions: a fold_in
+    thread a row and a normal thread a draw, as the SASS counts them
+    (``PRNG_FOLD_IN_INSTRUCTIONS``, ``PRNG_NORMAL_INSTRUCTIONS``).
+    """
+    bytes_ = 4.0 * items + 2 * 16.0 * items + 4.0 * items * K
+    (fold, fold_alu), (draw, draw_alu) = PRNG_FOLD_IN_INSTRUCTIONS, PRNG_NORMAL_INSTRUCTIONS
+    return bytes_, float(fold * items + draw * items * K), float(fold_alu * items + draw_alu * items * K)
+
+
+def prng_bound(work: tuple[float, float, float]) -> tuple[float, str]:
+    """(ms, what bounds it) of :func:`prng_work`: bytes at HBM speed, instructions at the dispatch rate or the ALU pipe's."""
+    times = {"bytes": work[0] / PEAK_BYTES_PER_S, "instruction dispatch": work[1] / PEAK_DISPATCH,
+             "ALU pipe": work[2] / PEAK_ALU}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
+def phase_prng(torch, card: str) -> dict:
+    """The threefry kernel (``csrc/bpmf_prng.cu``): its build, ``item_noise`` at ML20M's and ChEMBL's shapes, a hyper draw.
+
+    Each ``item_noise`` call is held to the plain ops on the same card
+    tensors, bit for bit (a gate), then timed: single calls, back-to-back
+    calls, the plain ops, and ``torch.randn`` of the same shape (Philox,
+    another generator: what a fused draw of that size costs in a library),
+    beside its bound (:func:`prng_bound`). Then one ``hyper.sample_hyper``
+    of a K = 32 side at ML20M's users: each of its draws (the key splits,
+    gamma's scalar ``fold_in``, its 8 x K normals and uniforms and the
+    boost's uniforms, the whole gamma on the Bartlett shapes, the K x K and
+    K normals) by the kernel against the plain ops on the same card keys,
+    bit for bit (a gate); then its prng launches and all its kernels, its
+    eager ms and its ms replayed from a CUDA graph, as a sweep runs it.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import hyper, posterior, prng
+    from repro_torch.core.types import NormalWishartPrior
+    from repro_torch.kernels.build import load_library
+
+    built = load_library("bpmf_prng")
+    print(json.dumps({"phase": "build_prng", "nvcc_seconds": built.seconds, "library": built.path.name,
+                      "ptxas": ptxas_report(built.log)}), flush=True)
+    key = prng.fold_in(prng.key(2718, "cuda"), 3)
+    rows = []
+    for shape, B, K in PRNG_SHAPES:
+        ids = torch.arange(B, dtype=torch.int32, device="cuda")
+        launches, plain = prng.LAUNCHES, prng.PLAIN_CALLS
+        got = posterior.item_noise(key, ids, K)
+        torch.cuda.synchronize()
+        launched = prng.LAUNCHES - launches
+        if prng.PLAIN_CALLS != plain:
+            raise AssertionError("item_noise on the card ran a plain draw")
+        want = prng.normal_plain(prng.fold_in_plain(key, ids), (K,))
+        ulps = int((got.view(torch.int32).long() - want.view(torch.int32).long()).abs().max())
+        if ulps:
+            raise AssertionError(f"item_noise by the kernel is {ulps} ulp off the plain ops at {shape}")
+        del got, want
+        bound, bound_by = prng_bound(prng_work(B, K))
+        row = {"phase": "prng_item_noise", "shape": shape, "items": B, "K": K, "launches_per_call": launched,
+               "bitwise_plain": True,
+               "kernel_ms": time_ms(torch, lambda: posterior.item_noise(key, ids, K), 20),
+               "kernel_device_ms": device_ms(torch, lambda: posterior.item_noise(key, ids, K)),
+               "plain_ms": time_ms(torch, lambda: prng.normal_plain(prng.fold_in_plain(key, ids), (K,)), 5),
+               "randn_ms": time_ms(torch, lambda: torch.randn(B, K, device="cuda"), 20),
+               "bound_ms": bound, "bound_by": bound_by, "output_bytes": 4 * B * K,
+               "instructions_per_draw": PRNG_NORMAL_INSTRUCTIONS[0],
+               "instructions_per_row": PRNG_FOLD_IN_INSTRUCTIONS[0]}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del ids
+    # one side's Normal-Wishart draw, as the sweep's hyper phase makes it twice
+    K = 32
+    gen = torch.Generator().manual_seed(28)
+    X = (0.3 * torch.randn(138_493, K, generator=gen)).to("cuda")
+    prior = NormalWishartPrior.default(K, device="cuda")
+    k_hyper = prng.fold_in(key, 1)
+    # its draws in hyper.py's and prng.gamma's key schedule, each by the kernel and by the plain ops
+    k_lam, k_mu = prng.split_plain(k_hyper)
+    kn, kc = prng.split_plain(k_lam)
+    k_rounds, k_boost = prng.split_plain(kc)
+    k_x, k_u = prng.split_plain(prng.fold_in_plain(k_rounds, 1))
+    cand = (prng._GAMMA_CANDIDATES, K)
+    bartlett = (prior.nu0 + X.new_full((), float(X.shape[0])) - torch.arange(K, dtype=X.dtype, device="cuda")) / 2.0
+    draws = {
+        "split": (lambda: prng.split(k_hyper), lambda: prng.split_plain(k_hyper)),
+        "fold_in, scalar": (lambda: prng.fold_in(k_rounds, 1), lambda: prng.fold_in_plain(k_rounds, 1)),
+        "normal, 8 x K": (lambda: prng.normal(k_x, cand), lambda: prng.normal_plain(k_x, cand)),
+        "uniform, 8 x K": (lambda: prng.uniform(k_u, cand), lambda: prng.uniform_plain(k_u, cand)),
+        "uniform, K": (lambda: prng.uniform(k_boost, (K,)), lambda: prng.uniform_plain(k_boost, (K,))),
+        "gamma, Bartlett shapes": (lambda: prng.gamma(kc, bartlett), lambda: prng.gamma_plain(kc, bartlett)),
+        "normal, K x K": (lambda: prng.normal(kn, (K, K)), lambda: prng.normal_plain(kn, (K, K))),
+        "normal, K": (lambda: prng.normal(k_mu, (K,)), lambda: prng.normal_plain(k_mu, (K,))),
+    }
+    for name, (by_kernel, by_plain) in draws.items():
+        launches, plain = prng.LAUNCHES, prng.PLAIN_CALLS
+        got = by_kernel()
+        torch.cuda.synchronize()
+        if prng.LAUNCHES == launches or prng.PLAIN_CALLS != plain:
+            raise AssertionError(f"the hyper draw's {name} on the card launched {prng.LAUNCHES - launches} "
+                                 f"kernels and ran {prng.PLAIN_CALLS - plain} plain draws")
+        want = by_plain()
+        same = got.shape == want.shape and got.dtype == want.dtype and torch.equal(
+            *((t.view(torch.int32) for t in (got, want)) if got.dtype == torch.float32 else (got, want)))
+        if not same:
+            raise AssertionError(f"the hyper draw's {name} by the kernel is not the plain ops' bit for bit")
+    launches, plain = prng.LAUNCHES, prng.PLAIN_CALLS
+    hyper.sample_hyper(k_hyper, X, prior)
+    torch.cuda.synchronize()
+    hyper_launches = prng.LAUNCHES - launches
+    if prng.PLAIN_CALLS != plain:
+        raise AssertionError("a hyper draw on the card ran a plain draw")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        hyper.sample_hyper(k_hyper, X, prior)
+        torch.cuda.synchronize()
+    kernels = kernel_rows(torch, prof)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        hyper.sample_hyper(k_hyper, X, prior)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        hyper.sample_hyper(k_hyper, X, prior)
+    line = {"phase": "prng_hyper_draw", "K": K, "rows": X.shape[0], "bitwise_plain": sorted(draws),
+            "prng_launches": hyper_launches,
+            "kernels": sum(r[1] for r in kernels), "device_kernel_ms": sum(r[0] for r in kernels),
+            "eager_ms": time_ms(torch, lambda: hyper.sample_hyper(k_hyper, X, prior), 20),
+            "replay_ms": time_ms(torch, graph.replay, 20), "card": card}
+    print(json.dumps(line), flush=True)
+    del graph, X
+    torch.cuda.empty_cache()
+    return {"item_noise": rows, "hyper": line}
 
 
 def gram_error(torch, got, want, val, P: int) -> tuple[float, float]:
@@ -540,6 +702,36 @@ def ml20m_config(BPMFConfig, checkpoint_dir: str):
     return BPMFConfig().replace(K=32, num_sweeps=4, burn_in=1, sweeps_per_block=2, checkpoint_dir=checkpoint_dir)
 
 
+def prng_main_path_start(torch, engine) -> dict:
+    """Zero ``prng``'s counters and draw the engine's initial factors; their launches, apart from the sweeps'.
+
+    The initial draws (``init_state``) run once, before the first block;
+    after this the counters hold the sweeps' draws alone.
+    """
+    from repro_torch.core import prng
+
+    prng.LAUNCHES = prng.PLAIN_CALLS = 0
+    engine._ensure_state()
+    torch.cuda.synchronize()
+    init = {"init_launches": prng.LAUNCHES, "init_plain_calls": prng.PLAIN_CALLS}
+    prng.LAUNCHES = 0
+    return init
+
+
+def prng_main_path_check(label: str, init: dict, graph, swept: int) -> dict:
+    """``prng``'s counts over a main-path run since :func:`prng_main_path_start`; raises unless every draw was the
+    kernel's: ``prng_launches_per_replay`` a sweep over ``swept`` sweeps, the initial draws launched, none plain."""
+    from repro_torch.core import prng
+
+    counts = {**init, "launches": prng.LAUNCHES, "plain_calls": prng.PLAIN_CALLS,
+              "launches_per_replay": graph.prng_launches_per_replay, "swept": swept}
+    if (not init["init_launches"] or init["init_plain_calls"] or prng.PLAIN_CALLS
+            or not graph.prng_launches_per_replay or prng.LAUNCHES != graph.prng_launches_per_replay * swept):
+        raise AssertionError(f"{label}: prng counts {counts}: want launches = launches_per_replay x swept, "
+                             "initial draws launched, and no plain draw")
+    return counts
+
+
 def phase_ml20m(torch, gram_kernel, repro_torch_mods, ckpt_root: Path) -> dict:
     from repro_torch.core import sweep_graph
 
@@ -567,6 +759,7 @@ def phase_ml20m(torch, gram_kernel, repro_torch_mods, ckpt_root: Path) -> dict:
     gram_kernel.LAUNCHES = 0
     gram_kernel.REDUCE_LAUNCHES = 0
     gram_kernel.PLAIN_CALLS = 0
+    prng_init = prng_main_path_start(torch, engine)
     block_s, save = [], {}
     t_prev = time.perf_counter()
     for m in engine.sample():
@@ -584,13 +777,14 @@ def phase_ml20m(torch, gram_kernel, repro_torch_mods, ckpt_root: Path) -> dict:
     rmse = [[m.rmse_sample, m.rmse_avg] for m in engine.history]
     # the first block captures the sweep, after one eager warm-up sweep
     swept = engine.num_sweeps_done + engine.backend.graph.setup_sweeps
+    prng_counts = prng_main_path_check("ml20m", prng_init, engine.backend.graph, swept)
     print(json.dumps({
         "phase": "ml20m_sweeps", "sweeps": engine.num_sweeps_done,
         "warmup_sweeps": sweep_graph.WARMUP_SWEEPS, "graph_replays": engine.backend.graph.replays,
         "seconds_per_sweep_by_block": [s / cfg.run.sweeps_per_block for s in block_s],
         "rmse_sample_avg": rmse, "launches": launches, "reduce_launches": reduce_launches,
         "plain_calls": plain_calls, "buckets_per_sweep": n_buckets,
-        "split_buckets_per_sweep": split_buckets, "max_memory_allocated_bytes": peak,
+        "split_buckets_per_sweep": split_buckets, "max_memory_allocated_bytes": peak, "prng": prng_counts,
     }), flush=True)
     if not all(math.isfinite(v) for row in rmse for v in row):
         raise AssertionError(f"non-finite RMSE at ML20M scale: {rmse}")
@@ -652,7 +846,7 @@ def phase_ml20m(torch, gram_kernel, repro_torch_mods, ckpt_root: Path) -> dict:
     }
     print(json.dumps({k: v for k, v in per_sweep.items() if k != "buckets"}), flush=True)
     return {"engine": engine, "launches": launches, "reduce_launches": reduce_launches, "gram": per_sweep,
-            "coo": coo, "cfg": cfg, "save": save, "peak": peak,
+            "coo": coo, "cfg": cfg, "save": save, "peak": peak, "prng": prng_counts,
             "expected_per_sweep": {"LAUNCHES": n_buckets, "REDUCE_LAUNCHES": split_buckets},
             "steady_sweep_s": block_s[-1] / cfg.run.sweeps_per_block,
             "rmse_sample": [m.rmse_sample for m in engine.history]}
@@ -769,7 +963,7 @@ def phase_graph_sweeps(torch, engine, run: dict, label: str, card: str, dist=Non
     put back afterwards. Then one eager block of each backend (and, for a
     ring, of each comm mode) under ``set_sync_debug_mode("error")``.
     """
-    from repro_torch.core import sweep_graph
+    from repro_torch.core import prng, sweep_graph
 
     b = engine.backend
     graph = b.graph
@@ -780,14 +974,16 @@ def phase_graph_sweeps(torch, engine, run: dict, label: str, card: str, dist=Non
     carry = (b.init_state(engine._k_init), b.init_pred(), b.init_accum())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rows, block_s, counts = [], [], []
+    rows, block_s, counts, prng_counts = [], [], [], []
+    prng_plain = prng.PLAIN_CALLS
     for n in (2, 2):
-        before = sweep_graph.launch_counts()
+        before, prng_before = sweep_graph.launch_counts(), prng.LAUNCHES
         t0 = time.perf_counter()
         *carry, r = b.sweep_block(key, *carry, n, _eager=True)
         rows += r.cpu().numpy().tolist()
         block_s.append(time.perf_counter() - t0)
         counts.append({k: (v - before[k]) // n for k, v in sweep_graph.launch_counts().items()})
+        prng_counts.append((prng.LAUNCHES - prng_before) / n)
     eager_peak = torch.cuda.max_memory_allocated()
     carry = tuple(carry)
     same_rows = [r[:3] for r in rows] == captured_rows and not any(r[3] for r in rows)
@@ -808,6 +1004,7 @@ def phase_graph_sweeps(torch, engine, run: dict, label: str, card: str, dist=Non
         "captured_s_per_sweep": captured_s, "eager_s_per_sweep": eager_s,
         "graph_replays_per_sweep": 1, "graph_replays": graph.replays,
         "gram_launches_per_replay": graph.launches_per_replay, "gram_launches_per_eager_sweep": counts[-1],
+        "prng_launches_per_replay": graph.prng_launches_per_replay, "prng_launches_per_eager_sweep": prng_counts[-1],
         "kernel_launches_per_sweep": {"captured": replayed["kernel_launches"], "eager": eager["kernel_launches"]},
         "device_kernel_ms_per_sweep": {"captured": replayed["device_kernel_ms"],
                                        "eager": eager["device_kernel_ms"]},
@@ -823,6 +1020,9 @@ def phase_graph_sweeps(torch, engine, run: dict, label: str, card: str, dist=Non
     if any(c != graph.launches_per_replay for c in counts):
         raise AssertionError(f"{label}: Gram launches per eager sweep {counts}, per replay "
                              f"{graph.launches_per_replay}")
+    if any(c != graph.prng_launches_per_replay for c in prng_counts) or prng.PLAIN_CALLS != prng_plain:
+        raise AssertionError(f"{label}: prng launches per eager sweep {prng_counts}, per replay "
+                             f"{graph.prng_launches_per_replay}, plain draws {prng.PLAIN_CALLS - prng_plain}")
 
     # no host read inside an eager block: a sync would raise
     modes = [None] if dist is None else ["ring", "ring_async", "allgather"]
@@ -908,6 +1108,7 @@ def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict, ckpt_root: Path) 
     torch.cuda.reset_peak_memory_stats()
     for name in COUNTERS:
         setattr(gram_kernel, name, 0)
+    prng_init = prng_main_path_start(torch, engine)
     block_s, after_block1, save = [], None, {}
     t_prev = time.perf_counter()
     for m in engine.sample():
@@ -927,6 +1128,7 @@ def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict, ckpt_root: Path) 
     rmse = [m.rmse_sample for m in engine.history]
     gap = [abs(a - b_) for a, b_ in zip(rmse, ml["rmse_sample"])]
     swept = engine.num_sweeps_done + b.graph.setup_sweeps  # the capture's warm-up and first timed replay too
+    prng_counts = prng_main_path_check("ring", prng_init, b.graph, swept)
     print(json.dumps({
         "phase": "ring_sweeps", "sweeps": engine.num_sweeps_done,
         "warmup_sweeps": sweep_graph.WARMUP_SWEEPS, "graph_replays": b.graph.replays,
@@ -934,7 +1136,7 @@ def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict, ckpt_root: Path) 
         "rmse_sample": rmse, "rmse_avg": [m.rmse_avg for m in engine.history],
         "sequential_rmse_sample": ml["rmse_sample"], "rmse_gap_to_sequential": gap,
         "counts": counts, "expected_fused_launches": expected_per_sweep * swept,
-        "max_memory_allocated_bytes": peak,
+        "max_memory_allocated_bytes": peak, "prng": prng_counts,
     }), flush=True)
     if counts["FUSED_LAUNCHES"] != expected_per_sweep * swept:
         raise AssertionError(f"{counts['FUSED_LAUNCHES']} fused launches, want {expected_per_sweep} "
@@ -967,7 +1169,7 @@ def phase_ring(torch, gram_kernel, BPMFEngine, dist, ml: dict, ckpt_root: Path) 
             raise AssertionError(f"{mode} differs from ring by {diff} after 2 sweeps")
         del st
     return {"engine": engine, "launches": counts["FUSED_LAUNCHES"],
-            "reduce_launches": counts["FUSED_REDUCE_LAUNCHES"], "save": save, "peak": peak,
+            "reduce_launches": counts["FUSED_REDUCE_LAUNCHES"], "save": save, "peak": peak, "prng": prng_counts,
             "reference": reference, "plans": plan_table(b.data),
             "expected_per_sweep": {"FUSED_LAUNCHES": expected_per_sweep, "FUSED_REDUCE_LAUNCHES": split_layouts},
             "steady_sweep_s": block_s[-1] / cfg.run.sweeps_per_block}
@@ -3350,6 +3552,8 @@ def run_all(np, torch) -> int:
     progress("kernel shapes")
     phase_kernel_shapes(torch, gram_kernel)
     phase_fused_shapes(torch, np, gram_kernel, ops, Bucket)
+    progress("prng")
+    prng_run = phase_prng(torch, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp_name:
         tmp = Path(tmp_name)
         progress("ml20m")
@@ -3485,6 +3689,27 @@ def run_all(np, torch) -> int:
                 "ms times single calls, device_ms runs of back-to-back calls; "
                 "no single PyTorch call computes the gather + Gram + per-item accumulation, so "
                 "library_ms is torch.bmm on each layout's pre-gathered chunks, contraction only",
+    }, {
+        "name": "bpmf_prng",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bpmf_prng.cu",
+        "replaces": "none (the JAX package leaves jax.random's threefry to XLA)",
+        "launches": {"ml20m": ml["prng"]["launches"], "ring": ring["prng"]["launches"]},
+        "launches_per_sweep": {"ml20m": ml["prng"]["launches_per_replay"],
+                               "ring": ring["prng"]["launches_per_replay"]},
+        "init_launches": {"ml20m": ml["prng"]["init_launches"], "ring": ring["prng"]["init_launches"]},
+        "plain_calls": {"ml20m": ml["prng"]["plain_calls"], "ring": ring["prng"]["plain_calls"]},
+        "item_noise": {r["shape"]: {k: r[k] for k in ("launches_per_call", "kernel_ms", "kernel_device_ms",
+                                                      "plain_ms", "randn_ms", "bound_ms", "bound_by")}
+                       for r in prng_run["item_noise"]},
+        "hyper_draw": {k: prng_run["hyper"][k] for k in ("prng_launches", "kernels", "eager_ms", "replay_ms")},
+        "note": "launches: the main path's runs of ml20m_sweeps and ring_sweeps (the 4 replays, the warm-up "
+                "sweep and the timed capture's first replay), launches_per_sweep each times the sweeps, the "
+                "initial factors' draws apart; item_noise: fold_in + normal, every row of one side in one "
+                "call, bit for bit the plain ops; bound_ms from the SASS's instructions a thread "
+                "(PRNG_NORMAL_INSTRUCTIONS) at the dispatch rate; randn_ms is torch.randn of the same shape "
+                "(Philox, another generator); hyper_draw: one side's Normal-Wishart draw at ML20M's users, "
+                "K = 32, each of its draws bit for bit the plain ops",
     }]}
     print(f"total seconds: {time.perf_counter() - t_all:.1f}", flush=True)
     print(json.dumps(kernels), flush=True)

@@ -46,11 +46,11 @@ What capture needs, and what this class does about it:
   exists to measure what it costs. The timed capture replays once before
   the first run (a first replay can run slow); ``timed_capture_seconds``
   holds it and that replay, ``capture_seconds`` the plain capture alone.
-* The Gram wrappers count a launch when Python calls them, which under
-  capture is once per capture and not once per replay. The captures'
-  counts are taken off the counters (no kernel ran) and added back at
-  every replay, the timed capture's first one included, so the counters
-  keep meaning "launches issued on the card".
+* The Gram wrappers and ``prng`` count a launch when Python calls them,
+  which under capture is once per capture and not once per replay. The
+  captures' counts are taken off the counters (no kernel ran) and added
+  back at every replay, the timed capture's first one included, so the
+  counters keep meaning "launches made on the card".
 
 The allocations of the captured sweep (the new factors, the Gram kernels'
 outputs and scratch) come from the graph's private memory pool and stay
@@ -63,6 +63,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import trace
+from repro_torch.core import prng
 from repro_torch.core.types import map_tensors, tensors
 from repro_torch.kernels import bpmf_gram as gram_kernel
 
@@ -118,12 +119,14 @@ class SweepGraph:
             torch.cuda.synchronize(self.device)
         self.warmup_seconds = warmup.seconds
 
-        before = launch_counts()
+        before, prng_before = launch_counts(), prng.LAUNCHES
         self.graph = torch.cuda.CUDAGraph()
         with trace.span("sweep_graph.capture") as capture:
             self.row, _ = self._capture(self.graph, step, trace.SilentPhases())
         self.capture_seconds = capture.seconds
         once = launch_counts()
+        # the threefry kernels of one sweep (core/prng.py), counted as the Gram launches are
+        self.prng_launches_per_replay = prng.LAUNCHES - prng_before
         # the capture with the phase events: (graph, metrics row, clock), replayed for a block's last sweep
         self.timed: tuple[torch.cuda.CUDAGraph, torch.Tensor, trace.DevicePhases] | None = None
         self.timed_capture_seconds = 0.0
@@ -142,6 +145,7 @@ class SweepGraph:
         self.launches_per_replay = {name: once[name] - before[name] for name in LAUNCH_COUNTERS}
         for name, n in before.items():
             setattr(gram_kernel, name, n + (self.timed is not None) * self.launches_per_replay[name])
+        prng.LAUNCHES = prng_before + (self.timed is not None) * self.prng_launches_per_replay
         # sweeps run before the first run, and counted as launched: the warm-up, the timed first replay
         self.setup_sweeps = WARMUP_SWEEPS + (self.timed is not None)
         self.replays = 0
@@ -207,6 +211,7 @@ class SweepGraph:
                 rows[i].copy_(row)
             for name, k in self.launches_per_replay.items():
                 setattr(gram_kernel, name, getattr(gram_kernel, name) + k)
+            prng.LAUNCHES += self.prng_launches_per_replay
         self.replays += n
         self.runs += 1
         return (self.carry if donate else map_tensors(self.carry, torch.clone)), rows

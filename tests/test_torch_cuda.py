@@ -51,6 +51,16 @@ The fig5 driver at its smoke size on the card: ``ring_async`` at depths
 1, 2 and 4 gives the ring's factors bit for bit, the modes agree in RMSE,
 and the ring steps launch the fused kernel.
 
+The threefry draws (``core/prng.py``) on the card: ``fold_in``, ``split``,
+``random_bits``, ``uniform`` and ``normal`` by the kernel of
+``csrc/bpmf_prng.cu`` equal the plain ops run on the same card tensors bit
+for bit (floats as their int32 words), as do ``posterior.item_noise`` at
+ChEMBL's size and ``gamma`` on the Bartlett shapes of a K = 32 draw; each
+call launches the kernel once and runs no plain draw. The kernel's keys,
+bits, uniforms and normals (``item_noise`` at ChEMBL's size too) also equal
+jax.random's, stored by tests/test_torch_prng.py in ``tests/data``, to the
+tolerances that file holds the plain ops to on the CPU.
+
 The LM scaffold's attention family on the card: each reduced config's
 forward (dense and flash paths) and one train step equal the CPU's within
 1e-4 in f32 from the same params (and the init draws agree to float32
@@ -59,6 +69,7 @@ greedy generation gives the CPU's tokens; the attention's bf16 products
 with float32 output (and their gradients) match their plain CPU version.
 """
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -669,3 +680,151 @@ def test_narrow_bmm_on_the_card_matches_its_plain_version(cuda):
     assert float((o2 - o1).abs().max()) <= 1e-5 * float(o1.abs().max())
     for g1, g2 in ((ga1, ga2), (gb1, gb2)):  # bf16 gradients: one bf16 step apart at most
         assert float((g2 - g1).abs().max()) <= 2**-7 * float(g1.abs().max())
+
+
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal shapes, dtypes and bits (floats compared as their int32 words, so -0.0 and NaNs count)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    if got.dtype == torch.float32:
+        return torch.equal(got.view(torch.int32), want.view(torch.int32))
+    return torch.equal(got, want)
+
+
+def _by_kernel(fn, launches: int = 1):
+    """``fn()`` on the card; asserts it launched ``launches`` prng kernels and ran no plain draw."""
+    before, plain = prng.LAUNCHES, prng.PLAIN_CALLS
+    out = fn()
+    torch.cuda.synchronize()
+    assert prng.LAUNCHES == before + launches
+    assert prng.PLAIN_CALLS == plain
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+def test_prng_keys_kernel_matches_the_plain_ops(cuda, seed):
+    """fold_in (int data 0, 5, 2**31 + 3; int64, int32 and 0-dim counters, -1 padding) and split (n = 2, 3, 5)
+    by the kernel equal the plain ops on the same card tensors, bit for bit."""
+    k = prng.key(seed, cuda)
+    for d in (0, 5, 2**31 + 3):
+        assert _same_bits(_by_kernel(lambda: prng.fold_in(k, d)), prng.fold_in_plain(k, d))
+    for data in (torch.arange(0, 1000, 7, device=cuda), torch.tensor([-1, 0, 3, 2**31 - 1], dtype=torch.int32,
+                                                                      device=cuda),
+                 torch.tensor(3, dtype=torch.int32, device=cuda)):
+        assert _same_bits(_by_kernel(lambda: prng.fold_in(k, data)), prng.fold_in_plain(k, data))
+    rows = prng.split_plain(k, 6).reshape(2, 3, 2)
+    assert _same_bits(_by_kernel(lambda: prng.fold_in(rows, 11)), prng.fold_in_plain(rows, 11))
+    ids = torch.arange(3, device=cuda)
+    assert _same_bits(_by_kernel(lambda: prng.fold_in(rows, ids)), prng.fold_in_plain(rows, ids))
+    for n in (2, 3, 5):
+        assert _same_bits(_by_kernel(lambda: prng.split(k, n)), prng.split_plain(k, n))
+        assert _same_bits(_by_kernel(lambda: prng.split(rows, n)), prng.split_plain(rows, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+@pytest.mark.parametrize("shape", [(1,), (5,), (3, 4), (2, 3, 5)])
+def test_prng_draw_kernel_matches_the_plain_ops(cuda, seed, shape):
+    """random_bits and uniform (on [0, 1) and [-3, 2.5)) by the kernel equal the plain ops on the card, bit for bit,
+    for one key and for a batch of keys."""
+    for k in (prng.key(seed, cuda), prng.fold_in_plain(prng.key(seed, cuda), torch.arange(4, device=cuda))):
+        assert _same_bits(_by_kernel(lambda: prng.random_bits(k, shape)), prng.random_bits_plain(k, shape))
+        assert _same_bits(_by_kernel(lambda: prng.uniform(k, shape)), prng.uniform_plain(k, shape))
+        assert _same_bits(_by_kernel(lambda: prng.uniform(k, shape, -3.0, 2.5)),
+                          prng.uniform_plain(k, shape, -3.0, 2.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+def test_prng_normal_kernel_matches_the_plain_ops(cuda, seed):
+    """20,000 normals from one key by the kernel equal the plain ops (log1pf, sqrtf, the erfinv polynomial) on the
+    card, bit for bit."""
+    k = prng.key(seed, cuda)
+    got = _by_kernel(lambda: prng.normal(k, (20_000,)))
+    assert _same_bits(got, prng.normal_plain(k, (20_000,)))
+
+
+@pytest.mark.cuda
+def test_item_noise_at_chembl_size_matches_the_plain_ops(cuda):
+    """posterior.item_noise over ChEMBL's 483,500 compounds at K = 32, ids padded with -1 as a bucket pads them:
+    two launches (fold_in, normal), the plain ops' bits."""
+    from repro_torch.core import posterior
+
+    B, K = 483_500, 32
+    key = prng.fold_in_plain(prng.key(2718, cuda), 3)
+    ids = torch.arange(B, dtype=torch.int32, device=cuda)
+    ids[-1000:] = -1
+    got = _by_kernel(lambda: posterior.item_noise(key, ids, K), launches=2)
+    assert _same_bits(got, prng.normal_plain(prng.fold_in_plain(key, ids), (K,)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1_000, 138_493])
+def test_gamma_on_bartlett_shapes_matches_the_plain_ops(cuda, n):
+    """gamma on the Bartlett shapes (df - i) / 2 of a K = 32 Wishart draw after n rows (df = K + n): its draws by
+    the kernel (split, and fold_in, split, normal, uniform per round, then the boost's uniform) give gamma_plain's
+    bits on the card."""
+    K = 32
+    a = (float(K + n) - torch.arange(K, dtype=torch.float32, device=cuda)) / 2.0
+    k = prng.fold_in_plain(prng.key(5, cuda), n)
+    got = _by_kernel(lambda: prng.gamma(k, a), launches=2 + 4 * prng.GAMMA_ROUNDS)
+    assert _same_bits(got, prng.gamma_plain(k, a))
+    assert torch.isfinite(got).all()
+
+
+# jax.random's draws on the CPU, stored by tests/test_torch_prng.py (which holds them to jax.random and
+# says how each is drawn); this machine needs no JAX to compare the kernel with them
+_JAX_DRAWS = Path(__file__).parent / "data" / "prng_jax_draws.npz"
+_JAX_DRAW_SEEDS = (0, 7, 2**31 - 1)
+_JAX_DRAW_SHAPES = ((1,), (5,), (3, 4), (2, 3, 5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fold_in", "split", "bits", "uniform", "normal", "item_noise"])
+def test_prng_kernel_matches_stored_jax_random(cuda, kind):
+    """The kernel's draws on the card against jax.random's, stored: keys, bits and uniforms on [0, 1) exactly,
+    normals (20,000 from a key; item_noise at ChEMBL's 483,500 x 32 with -1 padding) to 1e-6, a uniform on
+    [-3, 2.5) to one float32 ulp of 5.5 (XLA fuses its multiply-add)."""
+    from repro_torch.core import posterior
+
+    with np.load(_JAX_DRAWS) as f:
+        want = {name: f[name] for name in f.files if name.split("/")[0] == kind}
+    keys = [prng.key(s, cuda) for s in _JAX_DRAW_SEEDS]
+
+    def run(fn, launches=1):
+        return _by_kernel(fn, launches).cpu().numpy()
+
+    if kind == "fold_in":
+        got = np.stack([[run(lambda k=k, d=d: prng.fold_in(k, int(d))) for d in want["fold_in/ints"]] for k in keys])
+        np.testing.assert_array_equal(got, want["fold_in/by_int"])
+        ids = torch.from_numpy(want["fold_in/ids"]).to(cuda)
+        got = np.stack([run(lambda k=k: prng.fold_in(k, ids)) for k in keys])
+        np.testing.assert_array_equal(got, want["fold_in/by_ids"])
+    elif kind == "split":
+        for n in (2, 3, 5):
+            np.testing.assert_array_equal(np.stack([run(lambda k=k: prng.split(k, n)) for k in keys]),
+                                          want[f"split/{n}"])
+    elif kind == "bits":
+        for shape in _JAX_DRAW_SHAPES:
+            got = np.stack([run(lambda k=k: prng.random_bits(k, shape)) for k in keys])
+            np.testing.assert_array_equal(got, want["bits/" + "x".join(map(str, shape))])
+    elif kind == "uniform":
+        atol = float(np.spacing(np.float32(5.5)))
+        for shape in _JAX_DRAW_SHAPES:
+            name = "uniform/" + "x".join(map(str, shape))
+            np.testing.assert_array_equal(np.stack([run(lambda k=k: prng.uniform(k, shape)) for k in keys]), want[name])
+            got = np.stack([run(lambda k=k: prng.uniform(k, shape, -3.0, 2.5)) for k in keys])
+            np.testing.assert_allclose(got, want[f"{name}_on_-3_2.5"], rtol=0, atol=atol)
+    elif kind == "normal":
+        n, every = 20_000, 5
+        got = np.stack([run(lambda k=k: prng.normal(k, (n,)))[::every] for k in keys])
+        np.testing.assert_allclose(got, want["normal"], rtol=0, atol=1e-6)
+    else:
+        B, K, pad = 483_500, 32, 1_000
+        ids = torch.arange(B, dtype=torch.int32, device=cuda)
+        ids[-pad:] = -1
+        key = prng.fold_in(prng.key(2718, cuda), 3)
+        got = _by_kernel(lambda: posterior.item_noise(key, ids, K), launches=2)
+        rows = torch.from_numpy(want["item_noise/rows"]).to(cuda)
+        np.testing.assert_allclose(got[rows].cpu().numpy(), want["item_noise"], rtol=0, atol=1e-6)
