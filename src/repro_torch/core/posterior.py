@@ -23,6 +23,11 @@ The phase clock's marks (:mod:`repro_torch.trace`): a side starts in
 ``gram``; a bucket's Gram terms are ``gram``, its factorization and first
 solve ``solve``, its noise ``noise``, and the second solve with the
 scatter into the new factors ``solve`` again.
+
+``FACTORS`` counts the batched factorizations (calls of ``cholesky_ex``
+in :func:`sample_from_terms`) and ``FACTOR_ROWS`` the matrices they
+factor; a captured sweep counts them at each replay, as ``prng.LAUNCHES``
+(:mod:`repro_torch.core.sweep_graph`).
 """
 from __future__ import annotations
 
@@ -34,6 +39,9 @@ from repro_torch import trace
 from repro_torch.core import prng
 from repro_torch.core.types import BPMFConfig, BPMFData, Bucket, BucketedSide, HyperParams
 from repro_torch.kernels import autotune, ops
+
+FACTORS = 0
+FACTOR_ROWS = 0
 
 
 def item_noise(key: torch.Tensor, item_ids: torch.Tensor, K: int) -> torch.Tensor:
@@ -65,6 +73,7 @@ def sample_from_terms(
     hyper: HyperParams,
 ) -> torch.Tensor:
     """Draw x_i ~ N(P^-1 l, P^-1) for a batch of items from accumulated terms."""
+    global FACTORS, FACTOR_ROWS
     K = g.shape[-1]
     trace.phase("solve")
     prec = G + hyper.Lam  # [B, K, K]
@@ -72,6 +81,8 @@ def sample_from_terms(
     # cholesky_ex does not read the status back to the host, so the GPU
     # pipeline does not stall; a non-PD precision gives NaN rows, as JAX's does
     L, _ = torch.linalg.cholesky_ex(prec)
+    FACTORS += 1
+    FACTOR_ROWS += prec.shape[0]
     y = torch.linalg.solve_triangular(L, lin[..., None], upper=False)
     trace.phase("noise")
     z = item_noise(key, item_ids, K)

@@ -47,10 +47,11 @@ What capture needs, and what this class does about it:
   the first run (a first replay can run slow); ``timed_capture_seconds``
   holds it and that replay, ``capture_seconds`` the plain capture alone.
 * The Gram wrappers and ``prng`` count a launch when Python calls them,
-  which under capture is once per capture and not once per replay. The
-  captures' counts are taken off the counters (no kernel ran) and added
-  back at every replay, the timed capture's first one included, so the
-  counters keep meaning "launches made on the card".
+  and ``posterior`` a factorization, which under capture is once per
+  capture and not once per replay. The captures' counts are taken off the
+  counters (no kernel ran) and added back at every replay, the timed
+  capture's first one included, so the counters keep meaning "launches
+  made on the card" (``WORK_COUNTERS``).
 
 The allocations of the captured sweep (the new factors, the Gram kernels'
 outputs and scratch) come from the graph's private memory pool and stay
@@ -63,12 +64,18 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import trace
-from repro_torch.core import prng
+from repro_torch.core import posterior, prng
 from repro_torch.core.types import map_tensors, tensors
 from repro_torch.kernels import bpmf_gram as gram_kernel
 
 # the Gram wrappers' counters of kernels issued on the card
 LAUNCH_COUNTERS = ("LAUNCHES", "REDUCE_LAUNCHES", "FUSED_LAUNCHES", "FUSED_REDUCE_LAUNCHES")
+# other modules' counters of a sweep's device work: (module, counter, the graph's count per replay)
+WORK_COUNTERS = (
+    (prng, "LAUNCHES", "prng_launches_per_replay"),  # the threefry kernels (core/prng.py)
+    (posterior, "FACTORS", "factors_per_replay"),  # batched factorizations
+    (posterior, "FACTOR_ROWS", "factor_rows_per_replay"),  # the matrices they factor
+)
 WARMUP_SWEEPS = 1
 
 
@@ -119,14 +126,16 @@ class SweepGraph:
             torch.cuda.synchronize(self.device)
         self.warmup_seconds = warmup.seconds
 
-        before, prng_before = launch_counts(), prng.LAUNCHES
+        before = launch_counts()
+        work_before = [getattr(module, name) for module, name, _ in WORK_COUNTERS]
         self.graph = torch.cuda.CUDAGraph()
         with trace.span("sweep_graph.capture") as capture:
             self.row, _ = self._capture(self.graph, step, trace.SilentPhases())
         self.capture_seconds = capture.seconds
         once = launch_counts()
-        # the threefry kernels of one sweep (core/prng.py), counted as the Gram launches are
-        self.prng_launches_per_replay = prng.LAUNCHES - prng_before
+        # one sweep's count of each work counter, kept per replay as the Gram launches are
+        for (module, name, per_replay), n in zip(WORK_COUNTERS, work_before):
+            setattr(self, per_replay, getattr(module, name) - n)
         # the capture with the phase events: (graph, metrics row, clock), replayed for a block's last sweep
         self.timed: tuple[torch.cuda.CUDAGraph, torch.Tensor, trace.DevicePhases] | None = None
         self.timed_capture_seconds = 0.0
@@ -145,7 +154,8 @@ class SweepGraph:
         self.launches_per_replay = {name: once[name] - before[name] for name in LAUNCH_COUNTERS}
         for name, n in before.items():
             setattr(gram_kernel, name, n + (self.timed is not None) * self.launches_per_replay[name])
-        prng.LAUNCHES = prng_before + (self.timed is not None) * self.prng_launches_per_replay
+        for (module, name, per_replay), n in zip(WORK_COUNTERS, work_before):
+            setattr(module, name, n + (self.timed is not None) * getattr(self, per_replay))
         # sweeps run before the first run, and counted as launched: the warm-up, the timed first replay
         self.setup_sweeps = WARMUP_SWEEPS + (self.timed is not None)
         self.replays = 0
@@ -211,7 +221,8 @@ class SweepGraph:
                 rows[i].copy_(row)
             for name, k in self.launches_per_replay.items():
                 setattr(gram_kernel, name, getattr(gram_kernel, name) + k)
-            prng.LAUNCHES += self.prng_launches_per_replay
+            for module, name, per_replay in WORK_COUNTERS:
+                setattr(module, name, getattr(module, name) + getattr(self, per_replay))
         self.replays += n
         self.runs += 1
         return (self.carry if donate else map_tensors(self.carry, torch.clone)), rows

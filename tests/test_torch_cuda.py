@@ -35,6 +35,10 @@ sweep; a replay from a carry that is not the graph's own (a restored one)
 refills the static buffers first; ``donate_blocks="off"`` hands back
 copies that the next block leaves alone; and an eager block runs under
 ``torch.cuda.set_sync_debug_mode("error")``, so it has no hidden host read.
+At K = 128 (the Gram kernel's five sub-tiles a thread, cuSOLVER's blocked
+factorization) on a matrix with a movies bucket above pad 2,048 (pieces and
+the second pass), the captured sweep equals the eager one bit for bit, and
+the graph counts one factorization a bucket and every row once a replay.
 
 The item-sharded top-k on the card (1, 3 and 4 item shards, a tie across
 shards) returns the replicated scan's ids and scores bit for bit.
@@ -76,7 +80,7 @@ import pytest
 import torch
 
 from repro_torch.bpmf import BPMFConfig, BPMFEngine, load_dataset
-from repro_torch.core import prng, sweep_graph
+from repro_torch.core import posterior, prng, sweep_graph
 from repro_torch.core.types import Bucket
 from repro_torch.kernels import bpmf_gram as gram_kernel
 from repro_torch.kernels import ops
@@ -438,6 +442,26 @@ def test_captured_block_equals_eager_bit_for_bit(cuda, name):
     _assert_same_bits(again, eager2)
     assert torch.equal(again[3][:, 2].cpu(), torch.tensor([5.0, 6.0]))
     assert not again[3][:, 3].any()
+
+
+@pytest.mark.cuda
+def test_captured_sweep_at_rank_128_equals_eager_bit_for_bit(cuda):
+    coo = load_dataset("synthetic", num_users=3000, num_movies=400, nnz=150_000, noise_std=0.5, seed=3)
+    engine = BPMFEngine(BPMFConfig().replace(K=128, burn_in=1, keep_factor_samples=2))
+    engine.prepare(coo)
+    b, data = engine.backend, engine.backend.data
+    assert max(bk.P for bk in data.movies.buckets) > 2048
+    rows = data.num_users + data.num_movies
+    before = posterior.FACTOR_ROWS
+    eager = b.sweep_block(engine._k_run, *_fresh_carry(engine), 3, _eager=True)
+    assert posterior.FACTOR_ROWS - before == 3 * rows
+    before = posterior.FACTOR_ROWS
+    captured = b.sweep_block(engine._k_run, *_fresh_carry(engine), 3)
+    _assert_same_bits(captured, eager)
+    assert torch.isfinite(captured[3]).all() and not captured[3][:, 3].any()
+    assert b.graph.factor_rows_per_replay == rows
+    assert b.graph.factors_per_replay == len(data.users.buckets) + len(data.movies.buckets)
+    assert posterior.FACTOR_ROWS - before == (b.graph.setup_sweeps + 3) * rows
 
 
 @pytest.mark.cuda

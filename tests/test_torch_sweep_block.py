@@ -13,6 +13,9 @@
   draws pass a Kolmogorov–Smirnov test against ``scipy.stats.gamma``.
 * The counters are 0-dim int32 tensors, and a run split into blocks of 6,
   2 + 4 or 3 x 2 sweeps draws the same bits across burn-in.
+* An eager sweep counts one batched factorization a bucket
+  (``posterior.FACTORS``) and every row of both sides once
+  (``posterior.FACTOR_ROWS``).
 """
 import itertools
 
@@ -22,7 +25,7 @@ import torch
 from scipy import stats
 
 from repro_torch.bpmf import BPMFConfig, BPMFEngine, load_dataset
-from repro_torch.core import gibbs, prng
+from repro_torch.core import gibbs, posterior, prng
 from repro_torch.core.sweep_graph import tensors
 
 HOST_READS = ("__bool__", "__int__", "__float__", "item", "tolist", "cpu", "numpy")
@@ -167,3 +170,14 @@ def test_counters_are_device_ints_and_blocks_split_freely(name):
         assert torch.equal(got_rows, want_rows), split
         for x, y in zip(got_t, want_t):
             assert torch.equal(x, y), split
+
+
+def test_an_eager_sweep_factors_each_bucket_once_and_every_row_once():
+    engine = _engine("sequential")
+    data = engine.backend.data
+    before = posterior.FACTORS, posterior.FACTOR_ROWS
+    engine.backend.sweep_block(engine._k_run, *_carry(engine), 1)
+    buckets = len(data.users.buckets) + len(data.movies.buckets)
+    assert buckets > 2
+    assert posterior.FACTORS - before[0] == buckets
+    assert posterior.FACTOR_ROWS - before[1] == data.num_users + data.num_movies
